@@ -5,7 +5,7 @@ fixed threshold against the CFAR (noise-floor-adaptive) mode, and
 measures the streaming TRACK-mode rescue rate on the same low-SNR
 captures.
 
-    PYTHONPATH=/root/repo python bench/detect_sweep.py \
+    python bench/detect_sweep.py \
         [--config c3] [--snrs -2,0,2,5,8,10] [--trials 8] [--jsonl out]
 
 Columns per SNR point and mode:
@@ -20,11 +20,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -36,15 +37,12 @@ def main():
     ap.add_argument("--jsonl", default=None)
     args = ap.parse_args()
 
-    from ofdm_uhd_tpu.core.platform import force_cpu
-    force_cpu()
     from ofdm_uhd_tpu.core.spec import ChannelSpec
     from ofdm_uhd_tpu.channel import make_capture
     from ofdm_uhd_tpu.golden import GoldenModem
     from ofdm_uhd_tpu.pipeline.rx import RxPipeline
     from ofdm_uhd_tpu.pipeline.stream import StreamRx
     from ofdm_uhd_tpu.shard.mesh import make_mesh
-    from ofdm_uhd_tpu.core import platform
     from ofdm_uhd_tpu.metrics import JsonlLogger
 
     spec = __import__("ofdm_uhd_tpu.cli.config", fromlist=["load_spec"]
@@ -64,7 +62,7 @@ def main():
             r = np.random.default_rng(500 + t)
             noise = (r.normal(size=100_000) + 1j * r.normal(size=100_000)
                      ).astype(np.complex64) * 0.5
-            out = platform.fetch(rx[mode].rx_capture(noise, max_frames=mf))
+            out = rx[mode].rx_capture(noise, max_frames=mf)
             n_fa += int(np.asarray(out["valid"]).sum())
             n_samp += noise.size
         fa[mode] = 1e5 * n_fa / n_samp
@@ -83,7 +81,7 @@ def main():
                                  timing_offset=300 + 50 * t)
                 cap = make_capture(frames, ch, spec.n_sc, gap=900,
                                    seed=100 + t).astype(np.complex64)
-                out = platform.fetch(rx[mode].rx_capture(cap, max_frames=mf))
+                out = rx[mode].rx_capture(cap, max_frames=mf)
                 det += int(np.asarray(out["valid"]).sum())
                 ok_n += int(np.asarray(out["crc_ok"]).sum())
                 tx_n += args.frames

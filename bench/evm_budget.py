@@ -23,20 +23,20 @@ row isolates one stage's contribution:
                  the duty-cycle factor — a harness definition, not a
                  chain property.
 
-Run: PYTHONPATH=/root/repo python bench/evm_budget.py [--config c2]
+Run: python bench/evm_budget.py [--config c2]
      [--snr 22] [--frames 256] [--multipath c2] [--jsonl out.jsonl]
-CPU-only (host-side analysis; never contends for the TPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -49,10 +49,8 @@ def main():
     p.add_argument("--jsonl", default=None)
     args = p.parse_args()
 
-    from ofdm_uhd_tpu.core.platform import force_cpu
-    force_cpu()
     import jax.numpy as jnp
-    sys.path.insert(0, "/root/repo/bench")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sweeps import MULTIPATH
     from ofdm_uhd_tpu.cli import config as C
     from ofdm_uhd_tpu.core.spec import ChannelSpec

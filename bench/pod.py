@@ -1,23 +1,23 @@
-"""Pod scaling bench: streaming frames/s and Msamples/s vs time-axis size
-(BASELINE.json C5; SURVEY.md §4 'Distributed on hardware').
+"""Multi-device scaling bench: streaming frames/s and Msamples/s vs
+time-axis size (BASELINE.json C5; SURVEY.md §4 'Distributed on hardware').
 
-    PYTHONPATH=/root/repo python bench/pod.py --config c5 --devices 1,2,4,8
+    python bench/pod.py --config c5 --devices 1,2,4
 
-On hardware, run one process per host with --distributed (the scaling
-efficiency >= 80% assertion is the bench gate). On this machine, CPU
-virtual devices give semantics (not perf): pass --cpu 8.
+One process drives every local device. CPU virtual devices give
+semantics (not performance): pass --cpu 8.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -28,19 +28,15 @@ def main():
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--cpu", type=int, default=0,
                    help="force CPU with N virtual devices (semantics only)")
-    p.add_argument("--distributed", action="store_true")
     p.add_argument("--jsonl", default=None)
     args = p.parse_args()
 
-    import os
     if args.cpu:
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + f" --xla_force_host_platform_device_count={args.cpu}")
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    if args.distributed:
-        jax.distributed.initialize()
 
     from ofdm_uhd_tpu.cli import config as C
     from ofdm_uhd_tpu.core.spec import ChannelSpec

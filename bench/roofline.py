@@ -1,25 +1,42 @@
 """Analytic roofline anchors for the RX chain (SURVEY.md §5.1, §6).
 
-Computes per-stage FLOPs and HBM bytes per processed sample from the spec,
-against chip peaks, so measured Msamples/s can be judged against
-speed-of-light. Usage:
+Computes per-stage FLOPs and device-memory bytes per processed sample from
+the spec, against the device's published peaks, so measured Msamples/s
+can be judged against speed-of-light. Usage:
 
-    PYTHONPATH=/root/repo python bench/roofline.py --config c3 [--msps 123]
+    python bench/roofline.py --config c3 [--msps 123] [--device-kind KIND]
+
+KIND defaults to jax.devices()[0].device_kind; a device missing from PEAKS
+is an error.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ofdm_uhd_tpu.cli import config as C  # noqa: E402
 
-# TPU v5e (v5 lite) public peaks
-PEAK_F32_TFLOPS = 98.0 / 2     # bf16 197 TFLOP/s; f32 via MXU ~1/4 of bf16
-PEAK_HBM_GBS = 819.0
+# device_kind -> (f32 TFLOP/s outside the tensor cores, device memory GB/s).
+# Published dense peaks of the SXM part at its 700 W limit (NVIDIA H100
+# data sheet); the chain's matmuls run f32 at 'highest' precision, so the
+# f32 rate is its compute roof. A card set below 700 W cannot hold them.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": (67.0, 3350.0),
+}
+
+
+def peaks(device_kind: str) -> tuple[float, float]:
+    """(f32 TFLOP/s, GB/s) of a device kind; raises on an unknown one."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(f"no published peaks for device {device_kind!r}; "
+                         f"known: {sorted(PEAKS)}") from None
 
 
 def chain_costs(spec) -> list[tuple[str, float, float]]:
@@ -56,13 +73,13 @@ def chain_costs(spec) -> list[tuple[str, float, float]]:
 # mf extracted frames = mf * frame_len samples)
 _STAGE_GROUPS = {
     "corr": (["sync_correlate"], "capture"),
-    "det+ext": (["sync_correlate", "cfo_mix"], "capture"),
+    "cfo": (["cfo_mix"], "frames"),
     "frontend": (["fft", "eq_phase", "llr_demap"], "frames"),
     "decode": (["viterbi"], "frames"),
 }
 
 
-def crosscheck(spec, rec) -> None:
+def crosscheck(spec, rec, peak_tflops, peak_gbs) -> None:
     """Model-vs-measured per stage group: is the cost model (and therefore
     the chain speed-of-light number derived from it) anchored to reality?
     rec: last record of bench/stages.py --jsonl (VERDICT r2 item 5)."""
@@ -80,11 +97,11 @@ def crosscheck(spec, rec) -> None:
         nsamp = n_cap if basis == "capture" else n_frames
         f = sum(stages[p][0] for p in parts)
         b = sum(stages[p][1] for p in parts)
-        t_model = max(f * nsamp / (PEAK_F32_TFLOPS * 1e12),
-                      b * nsamp / (PEAK_HBM_GBS * 1e9)) * 1e3
+        t_model = max(f * nsamp / (peak_tflops * 1e12),
+                      b * nsamp / (peak_gbs * 1e9)) * 1e3
         print(f"{row:<10}{t_model:>10.2f}{ms:>10.2f}{ms / t_model:>11.1f}x")
-    print("(meas/model includes the per-dispatch floor; large ratios on "
-          "tiny-model stages are dispatch latency, not model error)")
+    print("(meas/model includes dispatch and launch latency; large ratios "
+          "on tiny-model stages are latency, not model error)")
 
 
 def main():
@@ -95,7 +112,15 @@ def main():
     p.add_argument("--stages-jsonl", default=None,
                    help="bench/stages.py --jsonl output; cross-checks the "
                         "cost model against the measured per-stage profile")
+    p.add_argument("--device-kind", default=None,
+                   help="device whose peaks to use (default: the first "
+                        "JAX device)")
     args = p.parse_args()
+    kind = args.device_kind
+    if kind is None:
+        import jax
+        kind = jax.devices()[0].device_kind
+    peak_tflops, peak_gbs = peaks(kind)
     spec = C.load_spec(args.config)
     stages = chain_costs(spec)
     tf = sum(f for _, f, _ in stages)
@@ -106,9 +131,10 @@ def main():
     for name, f, b in stages:
         print(f"{name:<16}{f:>12.1f}{b:>12.1f}")
     print(f"{'TOTAL':<16}{tf:>12.1f}{tb:>12.1f}")
-    msps_flops = PEAK_F32_TFLOPS * 1e12 / tf / 1e6
-    msps_bw = PEAK_HBM_GBS * 1e9 / tb / 1e6
-    bound = "HBM-bandwidth" if msps_bw < msps_flops else "compute"
+    msps_flops = peak_tflops * 1e12 / tf / 1e6
+    msps_bw = peak_gbs * 1e9 / tb / 1e6
+    print(f"peaks of {kind}: {peak_tflops} f32 TFLOP/s, {peak_gbs} GB/s")
+    bound = "memory-bandwidth" if msps_bw < msps_flops else "compute"
     sol = min(msps_flops, msps_bw)
     print(f"\nspeed-of-light: {sol:,.0f} Msamples/s ({bound}-bound; "
           f"flops-limit {msps_flops:,.0f}, bw-limit {msps_bw:,.0f})")
@@ -120,7 +146,7 @@ def main():
         with open(args.stages_jsonl) as f:
             recs = [json.loads(line) for line in f if line.strip()]
         recs = [r for r in recs if r.get("config") == args.config] or recs
-        crosscheck(spec, recs[-1])
+        crosscheck(spec, recs[-1], peak_tflops, peak_gbs)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """BER/EVM vs SNR sweep — the reference-class repo's sweep scripts, done
 as a reproducible harness (SURVEY.md §4 'BER-vs-SNR sweep scripts').
 
-    PYTHONPATH=/root/repo python bench/sweeps.py --config c2 \
+    python bench/sweeps.py --config c2 \
         --snrs 4,6,8,10,12 --frames 50 [--multipath c2] [--eq mmse] \
         [--jsonl out.jsonl]
 
@@ -29,12 +29,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import math
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ofdm_uhd_tpu.cli import config as C  # noqa: E402
 
@@ -99,8 +100,6 @@ def main():
     p.add_argument("--jsonl", default=None)
     args = p.parse_args()
 
-    from ofdm_uhd_tpu.core.platform import force_cpu
-    force_cpu()  # sweeps are host-side analysis; never contend for the TPU
     from ofdm_uhd_tpu.core.spec import ChannelSpec
     from ofdm_uhd_tpu.channel import apply_channel
     from ofdm_uhd_tpu.pipeline import TxPipeline, RxPipeline

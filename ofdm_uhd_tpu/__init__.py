@@ -1,16 +1,18 @@
-"""ofdm_uhd_tpu — a TPU-native OFDM modem framework.
+"""ofdm_uhd_tpu — an OFDM modem framework in JAX, run on an NVIDIA GPU.
 
 Brand-new design (NOT a port) with the capabilities of the reference
-`rubiruchi/ofdm_uhd` class of C++/UHD OFDM transceivers, re-architected for
-TPU: JAX/XLA for the signal chain, Pallas kernels for the hot ops (FFT,
-FIR/polyphase, sync correlation), `shard_map` + collectives for pod scaling,
-and file/stream sample sources in place of UHD radio I/O.
+`rubiruchi/ofdm_uhd` class of C++/UHD OFDM transceivers, built as array
+programs: JAX/XLA for the signal chain, one hand-written Pallas kernel
+(Triton route) for the Viterbi decoder, `shard_map` + collectives for
+multi-device scaling, and file/stream sample sources in place of UHD
+radio I/O.
 
 Layer map (see SURVEY.md §1.2):
-  core/      specs, numerology, stream state
+  core/      specs, numerology, stream state, compile cache
   golden/    float64 NumPy oracle chain (accuracy reference)
   phy/       pure-JAX PHY blocks (scramble, FEC, QAM, frame, chanest, sync, ...)
-  kernels/   Pallas TPU kernels + XLA fallbacks
+  kernels/   XLA kernels (FFT, FIR/polyphase, S&C correlator) + the fused
+             Viterbi kernel
   channel/   impairment models (AWGN, multipath, CFO, phase noise)
   io/        capture file / stream sample sources and sinks
   pipeline/  jitted TX/RX pipelines, streaming loop
@@ -20,14 +22,12 @@ Layer map (see SURVEY.md §1.2):
 
 __version__ = "0.1.0"
 
-# Exact matmul/conv numerics by default. The MXU's default precision
-# rounds f32 operands to bf16, which (a) corrupted the Viterbi path
-# metrics outright (scripts/tpu_probe_vitwin4.py) and (b) puts a ~-48 dB
-# error floor under every one-hot selection matmul and FIR conv in the
-# chain (grid scatter, depuncture, integer-CFO search, polyphase). The
-# chain is latency/HBM-bound, not MXU-throughput-bound, so the 3-pass f32
-# emulation costs nothing measurable. Opt out (or pick another level) via
-# OFDM_MATMUL_PRECISION.
+# Exact matmul/conv numerics by default. The chain moves symbols between
+# bin orderings, depunctures, checks CRCs and searches integer CFO with
+# one-hot f32 matmuls that are bit-exact only when f32 products are kept
+# whole; a GPU's default f32 matmul precision runs them in TF32, which
+# keeps ~10 mantissa bits and would round them (and the FIR filters)
+# to ~1e-3. Opt out (or pick another level) via OFDM_MATMUL_PRECISION.
 import os as _os
 
 import jax as _jax

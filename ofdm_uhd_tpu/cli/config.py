@@ -40,8 +40,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="named config (c1..c5) or JSON spec path")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="KEY=VAL", help="spec override, e.g. mod=qam64")
-    p.add_argument("--backend", choices=["xla", "pallas", "auto"],
-                   default=None, help="kernel backend override")
+    p.add_argument("--backend", choices=["xla", "auto"],
+                   default=None, help="kernel backend override ('auto': "
+                   "fused Viterbi kernel on a GPU)")
     p.add_argument("--seed", type=int, default=0)
 
 

@@ -6,7 +6,7 @@ keeps for FFT size, CP length, occupied/pilot bins and modulation
 see SURVEY.md §0 — BASELINE.json configs C1–C5 define the required
 numerologies: 64/256/1024 subcarriers, CP 16 @ N=64, QPSK/QAM-16/QAM-64).
 
-Everything downstream (golden chain, JAX phy, Pallas kernels, sharding) reads
+Everything downstream (golden chain, JAX phy, kernels, sharding) reads
 geometry from this frozen dataclass; changing a spec re-jits by design.
 
 Conventions
@@ -73,22 +73,19 @@ class WaveformSpec:
     sfo_track: bool = False        # pilot phase-SLOPE tracking (SFO/timing drift)
     eq_mode: str = "zf"            # 'zf' | 'mmse' (noise var from guard bins)
     tx_window: int = 0             # raised-cosine edge taper (samples, < cp/2)
-    kernel_backend: str = "xla"    # 'xla' | 'pallas' | 'auto' (per-kernel
-                                   # measured winner — kernels/policy.py)
-    viterbi_mode: str = "scan"     # 'scan' (exact sequential) | 'windowed'
-                                   # (sliding-window parallel, ~10x lower
-                                   # latency; exact when survivors merge
-                                   # within the 96-step overlap)
-    viterbi_impl: str = "shuffle"  # Pallas kernel layout: 'shuffle' (states
-                                   # on sublanes, bit-packed decisions) |
-                                   # 'mm' (one-hot-matmul fallback); static
-                                   # spec field so changing it re-jits
-    filter_precision: str = "exact"  # MXU filter-tier accuracy gate:
-                                   # 'exact' (HIGHEST, f32-exact — default,
-                                   # required by bit-level gates) | 'bf16'
-                                   # (1-pass, ~4e-3 rel, ~1.5x faster —
-                                   # EVM-grade callers only; Mosaic has no
-                                   # HIGH tier in-kernel)
+    kernel_backend: str = "xla"    # 'xla' | 'auto': 'auto' decodes with
+                                   # the fused Viterbi kernel on a CUDA
+                                   # device (kernels/viterbi.py)
+    viterbi_mode: str = "scan"     # XLA decoder: 'scan' (exact sequential)
+                                   # | 'windowed' (sliding-window parallel;
+                                   # exact when survivors merge within the
+                                   # 96-step overlap)
+    filter_precision: str = "exact"  # FIR/polyphase matmul precision:
+                                   # 'exact' (HIGHEST, f32 products —
+                                   # default, required by bit-level gates)
+                                   # | 'bf16' (Precision.DEFAULT, which is
+                                   # TF32 on a GPU, ~1e-3 rel — EVM-grade
+                                   # callers only)
 
     def __post_init__(self):
         if self.modulation not in MOD_BITS:
@@ -97,13 +94,11 @@ class WaveformSpec:
             raise ValueError(f"unknown fec_rate {self.fec_rate!r}")
         if self.viterbi_mode not in ("scan", "windowed"):
             raise ValueError(f"unknown viterbi_mode {self.viterbi_mode!r}")
-        if self.kernel_backend not in ("xla", "pallas", "auto"):
+        if self.kernel_backend not in ("xla", "auto"):
             raise ValueError(f"unknown kernel_backend {self.kernel_backend!r}")
         if self.filter_precision not in ("exact", "bf16"):
             raise ValueError(
                 f"unknown filter_precision {self.filter_precision!r}")
-        if self.viterbi_impl not in ("shuffle", "mm"):
-            raise ValueError(f"unknown viterbi_impl {self.viterbi_impl!r}")
         if self.n_occupied == 0:
             object.__setattr__(self, "n_occupied", _default_occupied(self.n_sc))
         if self.n_occupied >= self.n_sc:

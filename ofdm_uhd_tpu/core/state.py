@@ -65,9 +65,6 @@ class StreamState:
     @classmethod
     def init(cls, spec: WaveformSpec) -> "StreamState":
         h = cls.halo_len(spec)
-        # host (numpy) zeros, NOT jnp: the initial state must be able to
-        # cross the executable boundary, and complex device arrays cannot
-        # on runtimes needing planarization (core/boundary.py)
         return cls(
             tail=np.zeros(h, dtype=np.complex64),
             rtail=np.zeros(cls.rtail_len(spec), dtype=np.complex64),
@@ -84,12 +81,10 @@ class StreamState:
     def save(self, path: str) -> None:
         leaves, _ = jax.tree_util.tree_flatten(self)
         names = [f.name for f in dataclasses.fields(self)]
-        from .platform import fetch
-        np.savez(path, **{n: fetch(v) for n, v in zip(names, leaves)})
+        np.savez(path, **{n: np.asarray(v) for n, v in zip(names, leaves)})
 
     @classmethod
     def load(cls, path: str) -> "StreamState":
         z = np.load(path)
-        # keep leaves host-side (see init)
         kw = {f.name: z[f.name] for f in dataclasses.fields(cls)}
         return cls(**kw)

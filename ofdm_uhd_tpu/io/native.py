@@ -14,7 +14,9 @@ import numpy as np
 
 _DIR = os.path.dirname(__file__)
 _SRC = os.path.join(_DIR, "native_src", "deframe.cpp")
-_SO = os.path.join(_DIR, "native_src", "libdeframe.so")
+# built from the tracked source into the checkout's build/ (gitignored)
+_BUILD = os.path.join(_DIR, "..", "..", "build")
+_SO = os.path.join(_BUILD, "libdeframe.so")
 
 _lib = None
 
@@ -28,6 +30,7 @@ def _load() -> ctypes.CDLL:
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
                "-o", _SO, _SRC]
         try:
+            os.makedirs(_BUILD, exist_ok=True)
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         except Exception as e:  # no toolchain / compile error -> fallback
             raise ImportError(f"native deframe build failed: {e}") from e

@@ -2,10 +2,10 @@
 //
 // The reference-class system's native code is libuhd's C++ streamer plus
 // SIMD sample-format conversion (sc16 <-> fc32) on the host (SURVEY.md
-// §2.2-K4; mount empty, §0). The TPU build replaces radio I/O with files/
+// §2.2-K4; mount empty, §0). This build replaces radio I/O with files/
 // streams, so the surviving native role is exactly this conversion path:
 // it sits on the host feed into the device and must not bottleneck the
-// HBM-bound pipeline. Compiled -O3 -march=native; auto-vectorizes to AVX.
+// pipeline. Compiled -O3 -march=native; auto-vectorizes to AVX.
 //
 // Exposed C ABI (loaded via ctypes from ofdm_uhd_tpu.io.native):
 //   sc16_to_fc32(in int16[2n], out float[2n], n)     interleaved IQ -> c64

@@ -1,13 +1,13 @@
-"""TPU compute kernels (layer T2): Pallas implementations + XLA fallbacks.
+"""Compute kernels (layer T2) of the signal chain.
 
-Every kernel ships two backends selected by `WaveformSpec.kernel_backend`:
-  'xla'    — jnp/XLA formulation (always available, CPU-testable)
-  'pallas' — hand-written Pallas TPU kernel (the reference-class system's
-             native FFTW / liquid-dsp / correlator tier re-done for the MXU
-             and VMEM; SURVEY.md §2.2)
+fft, fir (through conv_backend) and sync are plain jax.numpy/lax
+formulations that XLA compiles for the device (cuFFT and fused
+elementwise/matmul kernels on a GPU); they are tested against the
+float64 golden NumPy chain (tests/kernels/).
 
-Both backends are equality-tested against each other and against the golden
-NumPy chain (tests/kernels/).
+viterbi is the one hand-written kernel: a fused Pallas decoder on the
+Triton route, selected by `WaveformSpec.kernel_backend='auto'` on a CUDA
+device, with the XLA decoders of phy.bits as its reference.
 """
 
 from . import fft, fir, sync  # noqa: F401

@@ -1,13 +1,12 @@
 """XLA formulations for the K2 FIR/polyphase kernel.
 
-Design notes (TPU-first, SURVEY.md §2.2-K2):
-* ALL 1-D filtering runs as BLOCK-BANDED MATMULS on the MXU, not
-  `lax.conv_general_dilated`: a C=1 1-D conv runs at ~1.5 GFLOP/s on this
-  backend (measured — it cost the round-1 chain 385 ms on the S&C boxcar
-  alone), while the banded matmul form hits the MXU. The ~(blk+K)/K MAC
-  overhead of the dense band is orders of magnitude below the MXU
-  roofline. Same formulation as the Pallas kernel (pallas_fir), expressed
-  in plain jnp so XLA fuses it (and GSPMD partitions it) anywhere.
+Design notes (SURVEY.md §2.2-K2):
+* ALL 1-D filtering runs as BLOCK-BANDED MATMULS, not
+  `lax.conv_general_dilated`: each block of outputs is one dense
+  [window, band] matmul, which XLA hands to the matrix library, at a MAC
+  overhead of ~(blk+K)/K. Whether cuDNN's 1-D convolution beats it on a
+  GPU is an open question (PERF.md). Plain jnp, so XLA fuses it (and
+  GSPMD partitions it) anywhere.
 * complex-by-real filtering runs the (re, im) planes as a batch dim;
 * polyphase interpolation never materializes the zero-stuffed signal: the
   prototype is decomposed host-side into an [L, D] branch-tap matrix and
@@ -28,9 +27,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-_MM = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
-
 
 @functools.lru_cache(maxsize=64)
 def _band_matrix(kern_key: tuple, c: int, k: int, stride: int,
@@ -58,22 +54,18 @@ def _conv1d(x: jax.Array, kernels, pad_left: int, pad_right: int,
     reshape — no gathers).
 
     blk sets the dense band's MAC inflation, ((blk-1)*stride + K) / K:
-    the r3 default blk=512 ran the 193-tap prototype at 3.6x (stride 1)
-    to 22x (stride 8) inflation and measured <=9.4% of the HBM roofline
-    (kab_r4net) — these kernels are MXU-bound, not HBM-bound, so the
-    default now scales blk DOWN until the window is ~2 taps wide
-    (inflation ~2x) with a 128-lane floor for full MXU output width.
-    precision: HIGHEST (6-pass bf16 = f32-exact products; the default
-    everywhere correctness gates compare bit-level) or HIGH (3-pass,
-    ~1e-6 relative error, 2x MXU throughput) for callers whose gates are
-    EVM-level.
+    the default scales blk down until the window is ~2 taps wide
+    (inflation ~2x), with a floor of 128 outputs per block.
+    precision: HIGHEST (f32 products; the default everywhere correctness
+    gates compare bit-level) or a lower level for callers whose gates are
+    EVM-level (kernels/fir.py).
     """
     kern = np.asarray(kernels, dtype=np.float32)
     c, k = kern.shape
     b, n = x.shape
     if blk is None:
         # inflation ((blk-1)*stride + k)/k ~ 2 => blk ~ k/stride, floored
-        # at 128 output lanes (a narrower matmul wastes MXU columns)
+        # at 128 outputs per block
         blk = max(128, 1 << int(np.ceil(np.log2(max(k / max(stride, 1), 1)))))
     ablk = blk * stride
     assert k <= ablk + stride, "taps longer than a block: raise blk"
@@ -110,7 +102,8 @@ def _merge_complex(planes: jax.Array, info, n_out: int) -> jax.Array:
     return (re + 1j * im).astype(jnp.complex64).reshape(batch_shape + (n_out,))
 
 
-def fir_same(x: jax.Array, taps) -> jax.Array:
+def fir_same(x: jax.Array, taps,
+             precision=jax.lax.Precision.HIGHEST) -> jax.Array:
     """'Same'-aligned FIR with real taps over complex [..., n] signals.
 
     y[i] = sum_j taps[j] * x[i + half - j], half = (len(taps)-1)//2 —
@@ -121,7 +114,8 @@ def fir_same(x: jax.Array, taps) -> jax.Array:
     half = (nt - 1) // 2
     planes, info = _split_complex(x)
     k = taps[::-1][None, :]                  # correlation with flipped taps
-    out = _conv1d(planes, k, pad_left=nt - 1 - half, pad_right=half)
+    out = _conv1d(planes, k, pad_left=nt - 1 - half, pad_right=half,
+                  precision=precision)
     return _merge_complex(out[:, 0, :], info, x.shape[-1])
 
 
@@ -142,13 +136,14 @@ def _branch_matrix(taps_key: tuple, l: int) -> tuple[np.ndarray, int, int]:
     return g, d_min, d_max
 
 
-def polyphase_interp_xla(x: jax.Array, l: int, taps: np.ndarray) -> jax.Array:
+def polyphase_interp_xla(x: jax.Array, l: int, taps: np.ndarray,
+                         precision=jax.lax.Precision.HIGHEST) -> jax.Array:
     """L-fold interpolation [..., n] -> [..., n*l]; taps = prototype (numpy)."""
     g, d_min, d_max = _branch_matrix(tuple(np.asarray(taps, dtype=np.float64)), l)
     planes, info = _split_complex(x)
     # y_p[n] = sum_d g_p[d] x[n-d] = correlation with g_p reversed
-    out = _conv1d(planes, g[:, ::-1],
-                  pad_left=d_max, pad_right=-d_min)        # [B2, L, n]
+    out = _conv1d(planes, g[:, ::-1], pad_left=d_max, pad_right=-d_min,
+                  precision=precision)                     # [B2, L, n]
     n = x.shape[-1]
     inter = jnp.swapaxes(out, 1, 2).reshape(planes.shape[0], n * l)
     return _merge_complex(inter, info, n * l)
@@ -226,7 +221,8 @@ def rational_decim_stream(w: jax.Array, l: int, m: int,
     return _merge_complex(inter, info, c_b)
 
 
-def polyphase_decim_xla(x: jax.Array, m: int, taps: np.ndarray) -> jax.Array:
+def polyphase_decim_xla(x: jax.Array, m: int, taps: np.ndarray,
+                        precision=jax.lax.Precision.HIGHEST) -> jax.Array:
     """M-fold decimation [..., n*m] -> [..., n]: strided 'same' FIR.
 
     Uses conv stride m so the discarded outputs are never computed.
@@ -236,5 +232,6 @@ def polyphase_decim_xla(x: jax.Array, m: int, taps: np.ndarray) -> jax.Array:
     half = (nt - 1) // 2
     planes, info = _split_complex(x)
     out = _conv1d(planes, taps[::-1][None, :],
-                  pad_left=nt - 1 - half, pad_right=half, stride=m)[:, 0, :]
+                  pad_left=nt - 1 - half, pad_right=half, stride=m,
+                  precision=precision)[:, 0, :]
     return _merge_complex(out, info, x.shape[-1] // m)

@@ -1,4 +1,4 @@
-"""Batched FFT/IFFT kernel (K1) — XLA backend; Pallas backend added in M3.
+"""Batched FFT/IFFT kernel (K1): XLA's FFT (cuFFT on a GPU).
 
 Replaces the reference-class FFTW dependency (SURVEY.md §2.2-K1; mount
 empty, §0). Orthonormal scaling throughout (matches golden.modem).
@@ -9,20 +9,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .policy import choose
 
-
-def fft(x: jax.Array, backend: str = "xla") -> jax.Array:
+def fft(x: jax.Array) -> jax.Array:
     """N-point FFT along the last axis, norm='ortho'."""
-    if choose("fft", x.shape[-1], backend) == "pallas":
-        from .pallas_fft import fft_pallas
-        return fft_pallas(x, inverse=False)
     return jnp.fft.fft(x, norm="ortho").astype(jnp.complex64)
 
 
-def ifft(x: jax.Array, backend: str = "xla") -> jax.Array:
+def ifft(x: jax.Array) -> jax.Array:
     """N-point IFFT along the last axis, norm='ortho'."""
-    if choose("fft", x.shape[-1], backend) == "pallas":
-        from .pallas_fft import fft_pallas
-        return fft_pallas(x, inverse=True)
     return jnp.fft.ifft(x, norm="ortho").astype(jnp.complex64)

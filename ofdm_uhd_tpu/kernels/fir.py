@@ -1,13 +1,8 @@
-"""FIR / polyphase resampler kernel (K2) — backend dispatch.
+"""FIR / polyphase resampler kernel (K2) — XLA banded-matmul filters.
 
 Replaces the reference-class liquid-dsp-style C/SIMD filter tier
-(SURVEY.md §2.2-K2; mount empty, §0). Backends:
-  'xla'    — conv_backend: one conv_general_dilated over (re, im) planes
-  'pallas' — pallas_fir_mxu (r4): row-major MXU banded two-matmul tier
-             (the r2 column-major banded pallas_fir lost 9-25x on 6%%
-             MXU row utilization; the r4 shifted-FMA pallas_shift tier
-             is VMEM-pass-bound at ~XLA parity — both kept only as
-             measured A/B baselines)
+(SURVEY.md §2.2-K2; mount empty, §0). The filters run as the block-banded
+matmuls of kernels/conv_backend.py.
 
 Numerics match golden.resample (same Kaiser-sinc prototype, same 'same'
 alignment / group-delay handling), up to f32.
@@ -19,58 +14,33 @@ import jax
 import numpy as np
 
 from . import conv_backend
-from .policy import choose
 
-# accuracy-gated MXU precision (VERDICT r4 item 3c): 'exact' = HIGHEST
-# (6-pass bf16, f32-exact products — the default; every bit-level
-# correctness gate assumes it); 'bf16' = DEFAULT 1-pass (~4e-3 relative,
-# EVM-grade callers only; kab_r5net: fir 145 vs 95.6 GB/s). There is NO
-# 'high' tier: Mosaic rejects Precision.HIGH inside kernels
-# ("Unsupported dot precision", r4 + re-confirmed r5 on-chip).
+# spec.filter_precision -> matmul precision of the filter band: 'exact' is
+# HIGHEST (f32 products; the default, and what every bit-level correctness
+# gate assumes); 'bf16' is Precision.DEFAULT, which on a GPU runs f32
+# matmuls in TF32 (~1e-3 relative) — for EVM-grade callers only.
 _PRECISIONS = {
     "exact": jax.lax.Precision.HIGHEST,
     "bf16": jax.lax.Precision.DEFAULT,
 }
 
 
-def _prec(name: str):
-    return _PRECISIONS[name or "exact"]
-
-
-def fir_filter(x: jax.Array, taps, backend: str = "xla",
-               precision: str = "exact") -> jax.Array:
-    """'Same'-aligned real-taps FIR of complex signals, [..., n] -> [..., n]."""
-    if choose("fir", len(taps), backend) == "pallas":
-        from .pallas_fir_mxu import fir_mxu_pallas
-        return fir_mxu_pallas(x, np.asarray(taps, dtype=np.float32),
-                              precision=_prec(precision))
-    return conv_backend.fir_same(x, taps)
-
-
 def polyphase_interp(x: jax.Array, l: int, taps: np.ndarray,
-                     backend: str = "xla",
                      precision: str = "exact") -> jax.Array:
     """L-fold polyphase interpolation, [..., n] -> [..., n*l].
 
     taps: prototype low-pass (host numpy; gain-l compensation applied
     internally). Twin of golden.resample.resample(x, l, 1).
     """
-    if choose("interp", l, backend, n=x.size) == "pallas":
-        from .pallas_fir_mxu import polyphase_interp_mxu_pallas
-        return polyphase_interp_mxu_pallas(x, l, np.asarray(taps),
-                                           precision=_prec(precision))
-    return conv_backend.polyphase_interp_xla(x, l, taps)
+    return conv_backend.polyphase_interp_xla(
+        x, l, taps, precision=_PRECISIONS[precision])
 
 
 def polyphase_decim(x: jax.Array, m: int, taps: np.ndarray,
-                    backend: str = "xla",
                     precision: str = "exact") -> jax.Array:
     """M-fold polyphase decimation, [..., n*m] -> [..., n].
 
     Twin of golden.resample.resample(x, 1, m).
     """
-    if choose("decim", m, backend, n=x.size) == "pallas":
-        from .pallas_fir_mxu import polyphase_decim_mxu_pallas
-        return polyphase_decim_mxu_pallas(x, m, np.asarray(taps),
-                                          precision=_prec(precision))
-    return conv_backend.polyphase_decim_xla(x, m, taps)
+    return conv_backend.polyphase_decim_xla(
+        x, m, taps, precision=_PRECISIONS[precision])

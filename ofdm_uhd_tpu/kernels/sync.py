@@ -1,4 +1,4 @@
-"""Schmidl-Cox sliding correlation kernel (K3) — backend dispatch.
+"""Schmidl-Cox sliding correlation kernel (K3), in XLA.
 
 Replaces the reference-class per-sample C++ correlator hot loop
 (SURVEY.md §2.2-K3; mount empty, §0). Computes, for each lag d:
@@ -6,15 +6,12 @@ Replaces the reference-class per-sample C++ correlator hot loop
     P(d) = sum_{m=0}^{L-1} conj(r[d+m]) * r[d+m+L]
     R(d) = 0.5 * sum_{m=0}^{2L-1} |r[d+m]|^2
 
-XLA backend: the windowed sums are computed by PAIRWISE DOUBLING —
+The windowed sums are computed by PAIRWISE DOUBLING —
 S_2w[d] = S_w[d] + S_w[d+w], log2(win) shifted adds of contiguous slices —
-NOT prefix-sum differences (long f32 cumsums lose precision and this
-environment's TPU backend lacks the large-N cumsum lowering) and NOT a
-boxcar conv_general_dilated (a C=1 1-D conv runs at ~1.5 GFLOP/s on this
-backend — measured 385 ms for the C3 capture, the round-1 chain
-bottleneck; the doubling form is 7 fused slice+adds, HBM-bound, <1 ms).
-The pairwise tree also carries LESS rounding error than the sequential
-conv order.
+NOT prefix-sum differences (long f32 cumsums lose precision) and NOT a
+boxcar convolution: the doubling form is a handful of fused slice+adds,
+bound by memory bandwidth, and the pairwise tree carries LESS rounding
+error than the sequential conv order.
 
 Golden twin: golden.sync.sc_metric (float64 cumsum form).
 """
@@ -54,15 +51,8 @@ def _moving_sum(x: jax.Array, win: int) -> jax.Array:
     return acc
 
 
-def sc_correlate(r: jax.Array, l: int, backend: str = "xla"
-                 ) -> tuple[jax.Array, jax.Array]:
+def sc_correlate(r: jax.Array, l: int) -> tuple[jax.Array, jax.Array]:
     """r [..., n] complex -> (P [..., nd], R [..., nd]), nd = n - 2l + 1."""
-    from .policy import choose
-    if choose("sc_corr", l, backend) == "pallas":
-        # r5: row-major MXU boxcar tier (the r4 shift tier that lost
-        # 0.46x is retired to research/pallas_shift)
-        from .pallas_sync import sc_correlate_mxu
-        return sc_correlate_mxu(r, l)
     prod = jnp.conj(r[..., :-l]) * r[..., l:]        # s[n], length n-l
     p_re = _moving_sum(jnp.real(prod), l)            # [..., nd]
     p_im = _moving_sum(jnp.imag(prod), l)

@@ -1,6 +1,6 @@
 """JAX bit-layer: scramble, CRC-32, convolutional FEC, Viterbi, interleaver.
 
-TPU-idiomatic re-design of the reference-class C++ shift-register loops
+Array re-design of the reference-class C++ shift-register loops
 (SURVEY.md §2.1 #2-#5, #21; mount empty, §0):
 
 * scrambler  -> precomputed LFSR sequence, one vectorized XOR
@@ -85,8 +85,8 @@ def _pack_words() -> jax.Array:
     decision vector into two int32 words by a masked select + 32-lane sum.
     State 31's/63's bit rides the int32 sign bit — adds of DISJOINT bits
     are exact in two's complement and `(w >> k) & 1` is undisturbed by the
-    arithmetic shift (same trick as the fused Pallas kernel's bit-packed
-    decisions, probed exact on-chip)."""
+    arithmetic shift (the fused kernel, kernels/viterbi.py, packs its
+    decisions the same way)."""
     return jnp.asarray((np.uint32(1) << (np.arange(64, dtype=np.uint32)
                                          % 32)).view(np.int32))
 
@@ -95,11 +95,11 @@ def _pack_choice(choice: jax.Array) -> jax.Array:
     """[..., 64] bool decisions -> [..., 2] int32 words (states 0-31, 32-63).
 
     Runs INSIDE the ACS scan body so the stored decision tensor is 8x
-    smaller than the [..., 64] bool form — at headline batch the decision
-    array is the decoder's dominant HBM traffic (write in the forward
-    scan + read in the traceback), so this is a bandwidth optimization,
-    not cosmetics. A handful of VPU selects/adds per step is free next to
-    the ACS selects already there."""
+    smaller than the [..., 64] bool form — at large batch the decision
+    array is the decoder's dominant device-memory traffic (write in the
+    forward scan + read in the traceback), so this is a bandwidth
+    optimization, not cosmetics. A handful of selects/adds per step is
+    free next to the ACS selects already there."""
     b = jnp.where(choice, _pack_words(), 0)
     return jnp.sum(b.reshape(choice.shape[:-1] + (2, 32)), axis=-1)
 
@@ -119,11 +119,10 @@ def _pred_metric(pm: jax.Array, p: int) -> jax.Array:
 
     The K=7 trellis has pred[p][s'] = ((s'<<1) | p) & 63, so the
     predecessor metric vector is just the even (p=0) or odd (p=1) strided
-    half of pm tiled twice — a pure VPU reshuffle. NO matmul and NO
-    gather: the earlier one-hot-matmul form ran on the MXU, whose default
-    bf16 pass quantizes the growing path metrics (spacing 4 at |pm|~1e3)
-    and silently corrupts decodes on TPU (scripts/tpu_probe_vitwin4.py:
-    ~45% bit mismatch vs CPU); gathers miscompile on this backend.
+    half of pm tiled twice — a strided slice, no matmul and no gather. A
+    one-hot matmul would be exact only at f32 'highest' precision: a
+    reduced-precision pass rounds the growing path metrics and corrupts
+    the decode.
     """
     h = pm[..., p::2]
     return jnp.concatenate([h, h], axis=-1)
@@ -135,7 +134,7 @@ def viterbi_decode(llr: jax.Array, unroll: int = 8) -> jax.Array:
     llr [B, 2n] (interleaved a/b, log P(0)/P(1)) -> bits [B, n].
     lax.scan over the n trellis steps; ACS vectorized over [B, 64] states
     (SURVEY.md §2.1 #4: the reference's hot C++ ACS loop becomes a scan of
-    VPU-wide selects). Trellis starts and ends in state 0 (tail-terminated).
+    vector selects). Trellis starts and ends in state 0 (tail-terminated).
     """
     vt = T.viterbi_tables()
     br_a = jnp.asarray(vt["br_a"])          # [2, 64] f32
@@ -177,12 +176,12 @@ def viterbi_decode(llr: jax.Array, unroll: int = 8) -> jax.Array:
         choice = c1 > c0                                     # tie -> pred 0
         pm_new = jnp.where(choice, c1, c0)
         # pack IN the body: the scan stores [n, B, 2] int32 instead of
-        # [n, B, 64] bool — 8x less decision HBM traffic (see _pack_choice)
+        # [n, B, 64] bool — 8x less decision memory traffic (see _pack_choice)
         return pm_new, _pack_choice(choice)
 
-    # unroll: the ACS body is a handful of tiny VPU/MXU ops — per-iteration
-    # loop overhead dominates on TPU; unrolling 8 bodies per iteration lets
-    # XLA pipeline them (exact, just scheduling)
+    # unroll: the ACS body is a handful of tiny ops, so per-iteration loop
+    # overhead dominates; unrolling 8 bodies per iteration lets XLA fuse
+    # and schedule them together (exact, just scheduling)
     _, packed = jax.lax.scan(acs, pm0, (la, lb),
                              unroll=unroll)                  # [n, B, 2] i32
 
@@ -198,12 +197,16 @@ def viterbi_decode(llr: jax.Array, unroll: int = 8) -> jax.Array:
     return bits[0] if squeeze else bits
 
 
-def viterbi_decode_windowed(llr: jax.Array, window: int = 512,
-                            overlap: int = 96) -> jax.Array:
+WINDOW = 512      # default geometry of the windowed decoders (XLA and the
+OVERLAP = 96      # fused kernel, kernels/viterbi.py)
+
+
+def viterbi_decode_windowed(llr: jax.Array, window: int = WINDOW,
+                            overlap: int = OVERLAP) -> jax.Array:
     """Windowed-parallel Viterbi: same decoder, ~10x less sequential depth.
 
-    The plain decoder's wall-clock on TPU is the scan LENGTH (thousands of
-    tiny latency-bound steps), not FLOPs. Standard sliding-window trick:
+    The plain decoder's wall-clock is the scan LENGTH (thousands of tiny
+    latency-bound steps), not FLOPs. Standard sliding-window trick:
     split the n trellis steps into W output windows of length `window`,
     extend each by `overlap` true steps on both sides (clipped at the
     sequence ends, where the exact boundary conditions apply instead), run
@@ -238,8 +241,7 @@ def viterbi_decode_windowed(llr: jax.Array, window: int = 512,
 
     la = llr[:, 0::2].astype(jnp.float32)                    # [B, n]
     lb = llr[:, 1::2].astype(jnp.float32)
-    # gather-free windowing: starts are static, windows are contiguous ->
-    # W static slices (this backend miscompiles gathers; quirk log)
+    # starts are static and windows contiguous -> W static slices
     def windows(a):                                          # [B,n]->[E,B,W]
         return jnp.stack([a[:, s:s + e] for s in starts],
                          axis=2).transpose(1, 0, 2)
@@ -299,9 +301,9 @@ def interleave(coded: jax.Array, n_cbps: int) -> jax.Array:
     """Per-symbol block interleave on [..., n_syms*n_cbps].
 
     The row-column permutation perm[k] = (n_cbps/16)*(k%16) + k//16 IS a
-    16 x (n_cbps/16) transpose — a reshape+swapaxes, not a gather (this
-    backend's gathers are slow and occasionally miscompile). Bit-identical
-    to golden.bits.interleave (roundtrip + golden-match tested).
+    16 x (n_cbps/16) transpose — a reshape+swapaxes, not a gather.
+    Bit-identical to golden.bits.interleave (roundtrip + golden-match
+    tested).
     """
     n16 = n_cbps // 16
     blocks = coded.reshape(coded.shape[:-1] + (-1, n16, 16))

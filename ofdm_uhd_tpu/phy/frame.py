@@ -1,13 +1,13 @@
 """JAX frame build/parse, OFDM modulate/demodulate, channel estimation,
 one-tap EQ and pilot phase tracking — batched over frames.
 
-TPU re-design of the reference-class per-symbol C++ loops around FFTW
+Array re-design of the reference-class per-symbol C++ loops around FFTW
 (SURVEY.md §2.1 #8-#15; mount empty, §0). All subcarrier moves between
 orderings (data/pilot <-> FFT grid <-> occupied) are ONE-HOT SELECTION
-MATMULS, not gathers/scatters: on TPU a scatter lowers poorly (and this
-environment's backend lacks several gather/scatter paths outright), while
-an f32 one-hot matmul rides the MXU and fuses with neighbours. The FFT runs
-through the K1 kernel (XLA or Pallas backend).
+MATMULS (exact under the package's f32 'highest' matmul precision), not
+gathers/scatters. Whether the native gather is cheaper on a GPU is an
+open question (ROADMAP Speed item 4). The FFT runs through the K1
+kernel.
 """
 
 from __future__ import annotations
@@ -54,16 +54,9 @@ def ofdm_modulate(spec: WaveformSpec, grid: jax.Array) -> jax.Array:
     add over the symbol axis instead of a loop).
     """
     import numpy as np
-    from ..kernels.policy import choose
     w = spec.tx_window
     b = grid.shape[0]
-    if (w <= 0 and spec.n_sc <= 512 and spec.cp > 0
-            and choose("ifftcp", spec.n_sc, spec.kernel_backend) == "pallas"):
-        # fused IFFT + CP-insertion kernel: one matmul writes each
-        # CP-prefixed symbol row, no concat pass (kernels/pallas_fft.py)
-        from ..kernels.pallas_fft import ifft_cp_pallas
-        return ifft_cp_pallas(grid, spec.cp).reshape(b, spec.frame_len)
-    x = K1.ifft(grid, backend=spec.kernel_backend)
+    x = K1.ifft(grid)
     with_cp = jnp.concatenate([x[..., -spec.cp:], x], axis=-1)
     if w <= 0:
         return with_cp.reshape(b, spec.frame_len)
@@ -94,25 +87,17 @@ def ofdm_demodulate(spec: WaveformSpec, samples: jax.Array,
     `shift` advances the FFT window into the CP (absorbed by the EQ, same as
     golden.modem.ofdm_demodulate).
     """
-    from ..kernels.policy import choose
     b = samples.shape[0]
     syms = samples[:, : spec.frame_len].reshape(b, spec.n_syms, spec.sym_len)
     start = spec.cp - shift
-    if (spec.n_sc <= 512 and spec.sym_len % 8 == 0
-            and choose("cpfft", spec.n_sc, spec.kernel_backend) == "pallas"):
-        # fused CP-strip + FFT kernel: reads the raw symbol rows, the
-        # strip lives in zero rows of the DFT matrix (kernels/pallas_fft.py)
-        from ..kernels.pallas_fft import cp_strip_fft_pallas
-        return cp_strip_fft_pallas(syms, start, spec.n_sc)
     win = jax.lax.slice_in_dim(syms, start, start + spec.n_sc, axis=-1)
-    return K1.fft(win, backend=spec.kernel_backend)
+    return K1.fft(win)
 
 
 def _smooth_occ(h: jax.Array, width: int) -> jax.Array:
     """Edge-renormalized MA over the occupied-bin axis (golden twin).
 
-    Small dense matmul (n_occ x n_occ banded-with-renorm matrix) — this
-    backend's 1-D convs are pathologically slow (kernels/conv_backend)."""
+    Small dense matmul (n_occ x n_occ banded-with-renorm matrix)."""
     if width <= 1:
         return h
     import numpy as np

@@ -1,6 +1,6 @@
 """JAX QAM mapper/demapper (hard + max-log LLR), Gray-coded, unit power.
 
-TPU re-design of the reference-class C++ LUT mapper / nearest-point demapper
+Array re-design of the reference-class C++ LUT mapper / nearest-point demapper
 (SURVEY.md §2.1 #6-#7; mount empty, §0): table gathers and per-axis
 vectorized min-distance — separable for Gray square QAM, so LLRs cost
 O(2^(b/2)) per axis instead of O(2^b) per symbol.
@@ -26,9 +26,7 @@ def _gray_amplitude(bits_axis: jax.Array, nb: int) -> jax.Array:
 
         a = s_0 * acc,   acc = 2^(nb-i) - s_i * acc  (i = nb-1 .. 1, acc0=1)
 
-    TPU rationale: a 2-8 entry table gather lowers to a scatter/gather op
-    the backend handles poorly (and this environment's backend not at all
-    for some operand sizes); three fused VPU ops replace it.
+    A few fused elementwise ops replace a 2-8 entry table gather.
     """
     s = 2.0 * bits_axis.astype(jnp.float32) - 1.0        # [..., nb]
     acc = jnp.float32(1.0)

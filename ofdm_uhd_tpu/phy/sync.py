@@ -26,9 +26,8 @@ from . import tables as T
 
 def detect_frames(spec: WaveformSpec, capture: jax.Array, max_frames: int,
                   threshold: float = 0.5, rel: float = 0.9,
-                  backend: str | None = None,
                   threshold_mode: str = "fixed", cfar_k: float = 16.0,
-                  with_sat: bool = False, front: str | None = None):
+                  with_sat: bool = False):
     """capture [n] -> (d [max_frames] i32, eps [max_frames] f32, valid [max_frames] bool).
 
     d = estimated first sample of each frame; eps = fractional CFO in
@@ -36,11 +35,10 @@ def detect_frames(spec: WaveformSpec, capture: jax.Array, max_frames: int,
     plateau midpoint - cp/2 rule as golden.sync.coarse_sync, anchored at
     rising edges of the above-threshold mask.
 
-    PARALLEL formulation (VERDICT r2 item 3a): round 2's hierarchical
-    search still ran max_frames (~130 for the C3 bench capture) SEQUENTIAL
-    lax.scan iterations, each doing a 512-wide block probe + span-wide
-    plateau localization — ~15-25 ms of pure loop latency per capture.
-    Here the data-dependent chain is split into
+    PARALLEL formulation: a sequential search would run max_frames (~130
+    for the C3 bench capture) dependent lax.scan iterations, each doing a
+    block probe + span-wide plateau localization. Here the data-dependent
+    chain is split into
       1. candidate enumeration: rising edges of (M >= threshold), compacted
          to the first `max_cand` indices with one top_k — O(n) parallel;
       2. per-candidate plateau localization + CFO: a vmapped slot body,
@@ -60,19 +58,8 @@ def detect_frames(spec: WaveformSpec, capture: jax.Array, max_frames: int,
     """
     l = spec.n_sc // 2
     n = capture.shape[-1]
-    # dense front end: 'fused' = single-pass Pallas correlate+metric
-    # (pallas_scfront; needs whole-row lag l % 128 == 0), 'xla' = the
-    # correlate/metric compose. Default routes via the kernel policy.
-    from ..kernels import policy as _policy
-    be = backend or spec.kernel_backend
-    fr = front or ("fused" if (l % 128 == 0 and _policy.choose(
-        "sc_front", l, be) == "pallas") else "xla")
-    if fr == "fused" and l % 128 == 0:
-        from ..kernels.pallas_scfront import sc_frontend_pallas
-        p, m = sc_frontend_pallas(capture, l)
-    else:
-        p, rr = sc_correlate(capture, l, backend=be)
-        m = sc_metric(p, rr)
+    p, rr = sc_correlate(capture, l)
+    m = sc_metric(p, rr)
     nd = m.shape[-1]
     span = spec.sym_len
 
@@ -107,13 +94,7 @@ def detect_frames(spec: WaveformSpec, capture: jax.Array, max_frames: int,
                                  with_sat=True)              # [max_cand]
     found_c = cand < nd
 
-    # localization runs as a Pallas DMA kernel: the vmapped dynamic_slice
-    # form lowers to gathers whose windows cost ~15 ms/dispatch at the
-    # headline batch (probe24/27: 21.6 -> 9.7 ms net at batch 32). d is
-    # bit-identical; eps can differ only on sentinel/out-of-capture
-    # candidates (invalid, masked below). kernels/pallas_localize.py.
-    from ..kernels.pallas_localize import localize_pallas
-    ds_c, eps_c = localize_pallas(m, p, cand, span, spec.cp, rel=rel)
+    ds_c, eps_c = localize(m, p, cand, span, spec.cp, rel=rel)
     valid_c = found_c & (ds_c + spec.frame_len <= n)
 
     # eligibility slack: the anchor d = plateau_mid - cp/2 can overshoot its
@@ -137,8 +118,6 @@ def detect_frames(spec: WaveformSpec, capture: jax.Array, max_frames: int,
     # offset (scan steps are sequential, so a block's zero tail is
     # overwritten by the next block's keeps). Bit-identical outputs;
     # integer sums (not f32 matmul) so ds stays exact past 2^24 samples.
-    # Measured chain-neutral at mf<=2050 (the 4x2048 geometry's slowdown
-    # is NOT here — r5_session11); kept for the asymptotics.
     ds, epss, valids = _compact_blocks(ds_c, eps_c, keeps, max_frames)
     out = (ds, epss, valids)
     if with_sat:
@@ -148,6 +127,35 @@ def detect_frames(spec: WaveformSpec, capture: jax.Array, max_frames: int,
         # (the direct-top_k equivalence argument no longer applies).
         return out + (sat,)
     return out
+
+
+def localize(m: jax.Array, p: jax.Array, cand: jax.Array, span: int,
+             cp: int, rel: float = 0.9) -> tuple[jax.Array, jax.Array]:
+    """Per-candidate plateau localization: m [nd] metric, p [nd] S&C
+    correlation, cand [mf] i32 rising edges -> (d [mf] i32, eps [mf] f32).
+
+    For each candidate c, over the window m[c : c + span] (zeros past the
+    end): the peak is the first-index argmax, the plateau [lo, hi] spans
+    the first and last samples >= rel * peak, d = max(c + (lo + hi) // 2
+    - cp // 2, 0), and eps = angle(P at the peak) / pi. A vmapped
+    dynamic_slice of `span` samples per candidate, which XLA emits as one
+    gather.
+    """
+    nd = m.shape[-1]
+    m_pad = jnp.concatenate([m, jnp.zeros(span, m.dtype)])
+
+    def one(c):
+        w = jax.lax.dynamic_slice(m_pad, (c,), (span,))
+        peak_off = jnp.argmax(w).astype(jnp.int32)
+        ab = w >= rel * jnp.max(w)
+        lo = jnp.argmax(ab).astype(jnp.int32)
+        hi = span - 1 - jnp.argmax(ab[::-1]).astype(jnp.int32)
+        d = jnp.maximum(c + (lo + hi) // 2 - cp // 2, 0)
+        pv = jax.lax.dynamic_slice(
+            p, (jnp.minimum(c + peak_off, nd - 1),), (1,))[0]
+        return d, (jnp.angle(pv) / jnp.pi).astype(jnp.float32)
+
+    return jax.vmap(one)(cand)
 
 
 _EXTRACT_BS = 512      # block size of the hierarchical index extraction
@@ -167,7 +175,7 @@ def _compact_blocks(ds_c: jax.Array, eps_c: jax.Array, keeps: jax.Array,
     eps_b = jnp.pad(eps_c.astype(jnp.float32), (0, pad)).reshape(-1, kb)
     k_b = jnp.pad(keeps, (0, pad)).reshape(-1, kb)
     # inclusive in-block rank by one exact triangular matmul (counts
-    # <= KB; cumsum is unreliable on this backend — quirk log)
+    # <= KB, so f32 at 'highest' precision is exact)
     tri = jnp.asarray(np.tril(np.ones((kb, kb), np.float32)).T)
     mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
     iot = jnp.arange(kb, dtype=jnp.int32)
@@ -205,11 +213,10 @@ def _first_k_indices(rise: jax.Array, k: int, sentinel: int,
     TRUE iff any block exceeded the _EXTRACT_S per-block capacity
     (i.e. the result may have dropped a true index).
 
-    The direct form — top_k over the negated index vector — was the C3
-    chain's single largest batched cost (~35 of 131 ms at batch 32,
-    probe18: lax.top_k is a multi-pass sort over all 554k samples).
+    The direct form — top_k over the negated index vector — is a
+    multi-pass sort over every sample of the capture.
     Hierarchical form: (1) per-512-block inclusive lane cumsum of the
-    bitmap by one exact f32 triangular matmul (values <= 512, MXU);
+    bitmap by one exact f32 triangular matmul (values <= 512);
     (2) the first _EXTRACT_S rise positions per block via rank-match
     one-hot integer reduces (no gathers); (3) one CHEAP top_k over the
     nb*_EXTRACT_S block slots (~8.7k elements, 64x smaller). Block-major
@@ -251,10 +258,8 @@ def _select_scan(spec: WaveformSpec, cand, ds_c, valid_c, found_c,
     """Reference greedy spacing selection: sequential lax.scan (~6 scalar
     ops per candidate). Kept as the semantic oracle for
     tests/unit/test_select_doubling.py — the production path is
-    _select_doubling, which is this recurrence exactly. The scan measured
-    ~2.8 ms NET per capture at max_cand=536 (stages_r4net: ~0.5 us of
-    scalar work per step x pure loop latency), which made the slot search
-    ~70%% of the whole C3 chain at batch 32."""
+    _select_doubling, which is this recurrence exactly, without a
+    max_cand-long chain of dependent loop steps."""
 
     def sel(carry, x):
         pos, dead = carry
@@ -276,7 +281,8 @@ def _select_scan(spec: WaveformSpec, cand, ds_c, valid_c, found_c,
 def _select_doubling(spec: WaveformSpec, cand, ds_c, valid_c, found_c,
                      slack: int) -> jax.Array:
     """Greedy spacing selection as PARALLEL successor-matrix doubling —
-    bit-identical to _select_scan, ~30x less wall-clock.
+    bit-identical to _select_scan, with log-depth instead of a sequential
+    chain.
 
     The scan's recurrence is a FUNCTION graph: after keeping candidate i,
     the next chain node is the FIRST candidate j with
@@ -288,12 +294,12 @@ def _select_doubling(spec: WaveformSpec, cand, ds_c, valid_c, found_c,
     nodes — exactly the scan's `dead` rule. Reachability S = sum_t F^t
     comes from log2(M) rounds of S += P @ S; P = P @ P (paths are unique,
     so every entry stays 0/1 and f32 matmuls are exact). ~10 matmuls of
-    [536, 536] on the MXU replace a 536-step scalar scan.
+    [536, 536] replace a 536-step scalar scan.
 
     Cost control: the doubling is cubic in the candidate count, which
     grows with the detection window (streaming at 4M-sample chunks has
-    ~4k slots — a single [4k, 4k] doubling measured as the capacity
-    collapse in r4.jsonl). Candidates are therefore processed in BLOCKS
+    ~4k slots, and a single [4k, 4k] doubling is ~64x the work of 16
+    [256, 256] blocks). Candidates are therefore processed in BLOCKS
     of _SEL_KB: doubling within each block, and a tiny (pos, dead) carry
     — the sequential rule's own state — rides a lax.scan across blocks
     (nb scalar-ish steps; the chain's block entry node is the first
@@ -320,8 +326,7 @@ def _select_doubling(spec: WaveformSpec, cand, ds_c, valid_c, found_c,
 
     mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
     rounds = int(np.ceil(np.log2(max(kb, 2))))
-    # strict-lower-triangular prefix-OR matrix (cumsum is unreliable on
-    # this backend — quirk log; one tiny exact matmul instead)
+    # strict-lower-triangular prefix-OR matrix (one tiny exact matmul)
     tri_strict = jnp.asarray(
         np.triu(np.ones((kb, kb), np.float32), k=1))
 
@@ -360,18 +365,11 @@ def _select_doubling(spec: WaveformSpec, cand, ds_c, valid_c, found_c,
 
 
 def extract_frames(spec: WaveformSpec, capture: jax.Array,
-                   ds: jax.Array, backend: str = "xla") -> jax.Array:
-    """[max_frames, frame_len] frames at offsets ds.
-
-    backend routes between the vmapped-dynamic_slice gather ('xla') and
-    the Pallas DMA extraction ('pallas'/'auto' — kernels/pallas_extract):
-    bit-exact twins, but the gather's CONSUMERS lower pathologically on
-    this backend (probe20-23), so the DMA form wins 3x at the headline
-    batch and speeds every downstream stage (r5_probe_extract)."""
-    from ..kernels import policy
-    if policy.choose("extract", spec.frame_len, backend) == "pallas":
-        from ..kernels.pallas_extract import extract_frames_pallas
-        return extract_frames_pallas(capture, ds, spec.frame_len)
+                   ds: jax.Array) -> jax.Array:
+    """[max_frames, frame_len] frames at offsets ds: a vmapped
+    dynamic_slice gather over the capture zero-padded by one frame, so a
+    frame that runs past the end reads zeros (and offsets past the end are
+    clamped to the all-zero pad)."""
     pad = jnp.zeros(spec.frame_len, capture.dtype)
     cap = jnp.concatenate([capture, pad])
 
@@ -391,8 +389,7 @@ def cfo_correct(frames: jax.Array, eps: jax.Array, n_sc: int) -> jax.Array:
 @functools.lru_cache(maxsize=32)
 def _int_cfo_tables(spec: WaveformSpec, search: int):
     """Host-precomputed shifted-bin SELECTION MATRIX for the integer-CFO
-    search (one-hot matmul instead of a [n_shifts, n_occ] gather — see
-    phy/frame.py on why gathers are avoided on this backend)."""
+    search (one-hot matmul instead of a [n_shifts, n_occ] gather)."""
     t = T.frame_tables(spec)
     occ = np.asarray(t["occupied_bins"], dtype=np.int64)
     shifts = np.arange(-search, search + 1)
@@ -405,26 +402,14 @@ def _int_cfo_tables(spec: WaveformSpec, search: int):
 
 
 def integer_cfo(spec: WaveformSpec, frames: jax.Array,
-                search: int = 4, eps_pre: jax.Array | None = None
-                ) -> jax.Array:
+                search: int = 4) -> jax.Array:
     """Integer CFO per frame [B] from preamble sym B (differential corr).
 
     Twin of golden.sync.integer_cfo, vectorized over frames and shifts.
-
-    eps_pre [B]: fractional CFO to derotate BEFORE the search, applied to
-    the sym-B window only (VERDICT r2 item 3b): the caller then applies
-    ONE full-frame ramp at eps_pre + k instead of two sequential ramps —
-    the window ramp is n_sc samples per frame vs frame_len, and the phase
-    values exp(-j*2*pi*eps*(start + i)/n_sc) are bit-identical to slicing
-    a full-frame cfo_correct, so k is unchanged.
     """
     sel, ref, shifts, n_s, n_occ = _int_cfo_tables(spec, search)
     start = spec.sym_len + spec.cp
     win = jax.lax.slice_in_dim(frames, start, start + spec.n_sc, axis=-1)
-    if eps_pre is not None:
-        nidx = jnp.arange(start, start + spec.n_sc, dtype=jnp.float32)
-        phase = 2.0 * jnp.pi * eps_pre[:, None] * nidx[None, :] / spec.n_sc
-        win = win * jnp.exp(-1j * phase).astype(jnp.complex64)
     y = jnp.fft.fft(win, norm="ortho").astype(jnp.complex64)   # [B, n_sc]
     selj = jnp.asarray(sel)
     ys = ((jnp.real(y) @ selj) + 1j * (jnp.imag(y) @ selj)).astype(

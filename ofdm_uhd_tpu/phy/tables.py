@@ -115,9 +115,7 @@ def puncture_tables(rate: str, full_len: int) -> dict[str, np.ndarray]:
 @functools.lru_cache(maxsize=32)
 def selection_tables(spec: WaveformSpec) -> dict[str, np.ndarray]:
     """One-hot f32 selection matrices — the gather/scatter-free way to move
-    symbols between bin orderings on TPU (MXU matmuls instead of scatter
-    ops, which this environment's backend partially lacks and which are
-    slow on TPUs generally).
+    symbols between bin orderings (phy/frame.py).
 
       data_to_grid  [n_data_sc, n_sc] : data symbols -> FFT-order bins
       pilot_to_grid [n_pilots, n_sc]  : pilot symbols -> FFT-order bins

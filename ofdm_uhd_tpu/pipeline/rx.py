@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from ..core.spec import WaveformSpec, CRC_BITS, TAIL_BITS
 from ..kernels import fir as K2
+from ..kernels import viterbi as KV
 from ..phy import agc as PA
 from ..phy import bits as PB
 from ..phy import frame as PF
@@ -34,39 +35,34 @@ class RxPipeline:
                  sync_threshold: float = 0.5, diag: bool = True,
                  sync_threshold_mode: str = "fixed"):
         # diag=False drops the diagnostic leaves (data_syms, cpe, h) from
-        # results: on this runtime every output byte pays executable
-        # staging cost, and the bench/production path needs only bits +
-        # metrics (EVM is computed inside either way).
-        from ..core.boundary import jit_planar
+        # results: the bench/production path needs only bits + metrics
+        # (EVM is computed inside either way), and every output leaf is
+        # device memory and a device->host copy.
         self.spec = spec
         self.shift = shift
         self.sync_threshold = sync_threshold
         self.sync_threshold_mode = sync_threshold_mode
-        self._aligned = jit_planar(
+        self._aligned = jax.jit(
             functools.partial(_rx_aligned, spec, shift, diag))
-        self._capture = jit_planar(
+        self._capture = jax.jit(
             functools.partial(_rx_capture, spec, sync_threshold, diag,
                               threshold_mode=sync_threshold_mode),
             static_argnames=("max_frames",))
-        self._capture_sc16 = jit_planar(
+        self._capture_sc16 = jax.jit(
             functools.partial(_rx_capture_sc16, spec, sync_threshold, diag,
                               threshold_mode=sync_threshold_mode),
             static_argnames=("max_frames",))
 
     def rx_aligned(self, frames: jax.Array) -> dict:
-        """frames [B, frame_len_radio] -> result dict (all [B, ...]).
-
-        Complex inputs may be numpy or boundary.Planar pairs; complex
-        result leaves come back Planar on planarized runtimes (decode with
-        platform.fetch)."""
+        """frames [B, frame_len_radio] -> result dict (all [B, ...])."""
         return self._aligned(frames)
 
     def rx_capture(self, capture: jax.Array, max_frames: int) -> dict:
         """capture [n] -> result dict with [max_frames, ...] slots + 'valid'.
 
         Batched form: capture [C, n] -> every result leaf gains a leading
-        [C] axis (the chain is vmapped over independent captures — one
-        dispatch amortizes sync/demod over C captures, VERDICT r1 item 1b).
+        [C] axis (the chain is vmapped over independent captures up to the
+        LLRs, and the C*max_frames slots decode as one batch).
         """
         return self._capture(capture, max_frames=max_frames)
 
@@ -75,8 +71,7 @@ class RxPipeline:
         [2, C, n] (real/imag planes, UHD wire format, full-scale 32767).
 
         The int16->complex conversion happens ON-DEVICE inside the jitted
-        chain: host->device moves 4x fewer bytes than complex64 — the
-        radio feed is the chain's bandwidth bottleneck, exactly as the
+        chain: host->device moves 4x fewer bytes than complex64, as the
         reference's UHD recv path streams sc16 and converts on the host.
         """
         return self._capture_sc16(iq, max_frames=max_frames)
@@ -90,11 +85,9 @@ def _to_baseband(spec: WaveformSpec, x: jax.Array) -> jax.Array:
     taps = T.resample_filter(l, m)
     y = x
     if m > 1:  # TX decimated by m -> RX interpolates by m
-        y = K2.polyphase_interp(y, m, taps, backend=spec.kernel_backend,
-                                precision=spec.filter_precision)
+        y = K2.polyphase_interp(y, m, taps, precision=spec.filter_precision)
     if l > 1:  # TX interpolated by l -> RX decimates by l
-        y = K2.polyphase_decim(y, l, taps, backend=spec.kernel_backend,
-                               precision=spec.filter_precision)
+        y = K2.polyphase_decim(y, l, taps, precision=spec.filter_precision)
     return y
 
 
@@ -139,18 +132,21 @@ def _frontend(spec: WaveformSpec, frames: jax.Array, shift: int) -> dict:
 
 
 def _demod_frames(spec: WaveformSpec, frames: jax.Array, shift: int,
-                  diag: bool = True, batch_hint: int | None = None) -> dict:
-    """Core symbol/bit recovery for frame-aligned baseband samples [B, frame_len].
-
-    batch_hint: the TOTAL decode batch of the enclosing dispatch when it
-    exceeds the trace-time B (the vmapped multi-capture path decodes
-    C*max_frames sequences even though each traced call sees max_frames) —
-    the regime-aware Viterbi routing (kernels/policy.py) keys on it.
-    """
+                  diag: bool = True) -> dict:
+    """Core symbol/bit recovery for frame-aligned baseband samples [B, frame_len]."""
     out = _frontend(spec, frames, shift)
+    return _finish(spec, out, diag)
+
+
+def _finish(spec: WaveformSpec, out: dict, diag: bool) -> dict:
+    """Decode the 'llr' leaf of a front-end result [..., coded] (any
+    leading batch dims, decoded as one flat batch) into payload/crc_ok."""
+    llr = out.pop("llr")
+    lead = llr.shape[:-1]
     with jax.named_scope("fec_decode"):
-        payload, crc_ok = _decode(spec, out.pop("llr"), batch_hint)
-    out.update({"payload": payload, "crc_ok": crc_ok})
+        payload, crc_ok = _decode(spec, llr.reshape(-1, llr.shape[-1]))
+    out.update({"payload": payload.reshape(lead + payload.shape[-1:]),
+                "crc_ok": crc_ok.reshape(lead)})
     if not diag:
         for k in ("data_syms", "cpe", "h"):
             out.pop(k)
@@ -169,31 +165,16 @@ def _demod_frames_with_h(spec: WaveformSpec, frames: jax.Array, shift: int,
     return out
 
 
-def _decode(spec: WaveformSpec, llr: jax.Array,
-            batch_hint: int | None = None) -> tuple[jax.Array, jax.Array]:
+def _decode(spec: WaveformSpec, llr: jax.Array
+            ) -> tuple[jax.Array, jax.Array]:
     """Interleaved coded LLRs [B, coded] -> (payload [B, n], crc_ok [B])."""
-    from ..kernels import policy
     llr_d = PB.deinterleave_soft(llr, spec.coded_bits_per_sym)
     llr_d = PB.depuncture_llr(llr_d, spec.fec_rate,
                               2 * spec.uncoded_bits_per_frame)
-    # regime-aware routing (kernels/policy.viterbi_impl, measured in
-    # kab_r4net): fused Pallas kernel for deep-latency batches (streaming
-    # steps decode ~18 slots/shard), windowed-parallel XLA for the middle
-    # (single captures ~130 frames), full scan for headline batches.
-    # 'pallas'/'xla' force their tier; all emit identical bits on every
-    # decodable frame (windowed can differ from the scan only on
-    # CRC-failing garbage — the CRC gate discards those either way).
-    batch = max(llr_d.shape[0], batch_hint or 0)
-    impl = policy.viterbi_impl(llr_d.shape[-1] // 2, batch,
-                               requested=spec.kernel_backend,
-                               mode=spec.viterbi_mode)
-    if impl == "fused":
-        from ..kernels.pallas_viterbi import viterbi_pallas
-        decoded = viterbi_pallas(llr_d, impl=spec.viterbi_impl)
-    elif impl == "windowed":
-        decoded = PB.viterbi_decode_windowed(llr_d)
-    else:
-        decoded = PB.viterbi_decode(llr_d)
+    # all decoders emit identical bits on every decodable frame (windowed
+    # and the fused kernel can differ from the scan only on CRC-failing
+    # garbage, which the CRC gate discards either way)
+    decoded = KV.viterbi(llr_d, spec.kernel_backend, spec.viterbi_mode)
     body = PB.descramble(decoded[:, : decoded.shape[-1] - TAIL_BITS])
     payload = body[:, : body.shape[-1] - CRC_BITS]
     crc_rx = body[:, body.shape[-1] - CRC_BITS:]
@@ -223,17 +204,28 @@ def _rx_aligned(spec: WaveformSpec, shift: int, diag: bool,
 
 def _rx_capture(spec: WaveformSpec, threshold: float, diag: bool,
                 capture: jax.Array, max_frames: int,
-                batch_hint: int | None = None,
                 threshold_mode: str = "fixed") -> dict:
-    if capture.ndim == 2:     # [C, n]: vmap the chain over captures
-        # the vmapped dispatch decodes C*max_frames sequences — that total
-        # (not the per-capture max_frames the traced body sees) is the
-        # regime the Viterbi backend choice must key on
-        hint = capture.shape[0] * max_frames
-        return jax.vmap(
-            lambda c: _rx_capture(spec, threshold, diag, c, max_frames,
-                                  batch_hint=hint,
-                                  threshold_mode=threshold_mode))(capture)
+    front = functools.partial(_capture_front, spec, threshold, max_frames,
+                              threshold_mode)
+    # [C, n]: the front end is vmapped over captures; the decoder takes
+    # all C*max_frames slots as one batch
+    out = jax.vmap(front)(capture) if capture.ndim == 2 else front(capture)
+    det_sat = out.pop("det_sat")
+    out = _finish(spec, out, diag)
+    out["crc_ok"] = out["crc_ok"] & out["valid"]
+    if diag:
+        # candidate-extraction overflow indicator: TRUE means
+        # a 512-sample block held more rising edges than the hierarchical
+        # extractor's capacity and a frame MAY have been missed — callers
+        # should not rely on the CRC gate alone to notice that.
+        out["det_sat"] = det_sat
+    return out
+
+
+def _capture_front(spec: WaveformSpec, threshold: float, max_frames: int,
+                   threshold_mode: str, capture: jax.Array) -> dict:
+    """One capture [n] -> detection, extraction, CFO and the symbol-domain
+    front end, up to the LLRs of max_frames slots."""
     pad = (-capture.shape[-1]) % spec.resample_l  # decimation needs n % L == 0
     if pad:  # static: resolved at trace time
         capture = jnp.pad(capture, (0, pad))
@@ -247,29 +239,16 @@ def _rx_capture(spec: WaveformSpec, threshold: float, diag: bool,
     ds, eps_f, valid, det_sat = PS.detect_frames(
         spec, capture, max_frames, threshold=threshold,
         threshold_mode=threshold_mode, with_sat=True)
-    frames = PS.extract_frames(spec, capture, ds,
-                               backend=spec.kernel_backend)
-    # two full-frame ramps, NOT the r2 "fused CFO" window-derot form: on
-    # this backend an elementwise multiply against a window SLICED from
-    # the frame gather costs ~15 ms at the headline batch (probe20-23 —
-    # consumers of gather outputs lower pathologically) while full-frame
-    # ramps on the same gather are ~1 ms each, so derotating the whole
-    # frame first and searching the clean window is 6 ms/dispatch
-    # faster. Numerics: two ramps differ from the composed ramp by ~1
-    # ulp (fl(e^a)*fl(e^b) vs fl(e^{a+b})) — k decisions and every
-    # CRC/EVM gate are unaffected.
+    frames = PS.extract_frames(spec, capture, ds)
+    # two full-frame ramps: derotate by the fractional CFO, search the
+    # integer CFO on the clean sym-B window, then apply the integer ramp.
+    # Two ramps differ from the composed ramp by ~1 ulp
+    # (fl(e^a)*fl(e^b) vs fl(e^{a+b})); k decisions and every CRC/EVM
+    # gate are unaffected.
     frames = PS.cfo_correct(frames, eps_f, spec.n_sc)
     k = PS.integer_cfo(spec, frames)
     eps = eps_f + k.astype(jnp.float32)
     frames = PS.cfo_correct(frames, k.astype(jnp.float32), spec.n_sc)
-    out = _demod_frames(spec, frames, shift=min(4, spec.cp // 4), diag=diag,
-                        batch_hint=batch_hint)
-    out.update({"d": ds, "eps": eps, "valid": valid,
-                "crc_ok": out["crc_ok"] & valid})
-    if diag:
-        # candidate-extraction overflow indicator (ADVICE r4): TRUE means
-        # a 512-sample block held more rising edges than the hierarchical
-        # extractor's capacity and a frame MAY have been missed — callers
-        # should not rely on the CRC gate alone to notice that.
-        out["det_sat"] = det_sat
+    out = _frontend(spec, frames, shift=min(4, spec.cp // 4))
+    out.update({"d": ds, "eps": eps, "valid": valid, "det_sat": det_sat})
     return out

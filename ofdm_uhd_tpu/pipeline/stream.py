@@ -36,7 +36,6 @@ class StreamRx:
     def __init__(self, spec: WaveformSpec, mesh=None, chunk_len: int | None = None,
                  max_frames_per_shard: int | None = None,
                  threshold: float = 0.5, threshold_mode: str = "fixed",
-                 pallas_halo: bool = False,
                  reshard: bool = False, track_mode: bool = True,
                  agc: bool = True, steps_per_dispatch: int = 8,
                  input_format: str = "fc32"):
@@ -69,13 +68,13 @@ class StreamRx:
         self._step, self._multi, self.cb, self.h = make_stream_step(
             spec, self.mesh, chunk_len, max_frames_per_shard,
             (threshold, threshold_mode),
-            pallas_halo=pallas_halo, reshard=reshard, track_mode=track_mode,
+            reshard=reshard, track_mode=track_mode,
             agc=agc, input_format=input_format)
         self.state = StreamState.init(spec)
         self.rescued = 0       # frames recovered by the TRACK-mode retry
         # host-side remainder buffer: complex64 samples, or int16 IQ
         # planes [2, n] when streaming radio-native sc16 (4x fewer
-        # host->device bytes — the feed is the streaming long pole)
+        # host->device bytes)
         self._buf = (np.zeros(0, dtype=np.complex64)
                      if input_format == "fc32"
                      else np.zeros((2, 0), dtype=np.int16))
@@ -85,12 +84,11 @@ class StreamRx:
         self._steps = 0
 
     def tracking(self) -> dict:
-        """Pod-tracked channel/CFO state (SURVEY.md §5.3/§5.5)."""
-        from ..core.platform import fetch
-        h_t = np.asarray(fetch(self.state.h_track))
+        """Mesh-tracked channel/CFO state (SURVEY.md §5.3/§5.5)."""
+        h_t = np.asarray(self.state.h_track)
         return {
-            "eps_track": float(np.asarray(fetch(self.state.eps_track))),
-            "track_wt": float(np.asarray(fetch(self.state.track_wt))),
+            "eps_track": float(np.asarray(self.state.eps_track)),
+            "track_wt": float(np.asarray(self.state.track_wt)),
             "h_track_rms": float(np.sqrt(np.mean(np.abs(h_t) ** 2))),
             "rescued": self.rescued,
         }
@@ -106,7 +104,6 @@ class StreamRx:
         multi-process SPMD (SURVEY.md §5.8).
         """
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from ..core import boundary
         if chunk.dtype == np.int16:
             # sc16 planes: [2, rc] or [K, 2, rc]; shard the sample axis
             lead = chunk.shape[:-1]
@@ -114,13 +111,6 @@ class StreamRx:
             return jax.make_array_from_callback(
                 chunk.shape, sh, lambda idx: chunk[idx])
         lead = chunk.shape[:-1]
-        if boundary.needs_planar():
-            pair = np.ascontiguousarray(np.stack([chunk.real, chunk.imag]))
-            sh = NamedSharding(self.mesh, P(None, *(None,) * len(lead),
-                                            "time"))
-            arr = jax.make_array_from_callback(
-                (2, *lead, self.radio_chunk), sh, lambda idx: pair[idx])
-            return boundary.Planar(arr)
         sh = NamedSharding(self.mesh, P(*(None,) * len(lead), "time"))
         return jax.make_array_from_callback(
             (*lead, self.radio_chunk), sh, lambda idx: chunk[idx])
@@ -174,14 +164,9 @@ class StreamRx:
                 out.extend(self._collect(*pending))
             pending = (outs, base, kk)
             # start the device->host copies NOW, so they overlap the next
-            # dispatch's compute instead of serializing in _collect (the
-            # per-dispatch fetch is the streaming mode's long pole)
+            # dispatch's compute instead of serializing in _collect
             for v in outs.values():
-                if hasattr(v, "copy_to_host_async"):
-                    try:
-                        v.copy_to_host_async()
-                    except Exception:
-                        pass
+                v.copy_to_host_async()
         self._buf = (self._buf[:, n_chunks * rc:]
                      if self.input_format == "sc16"
                      else self._buf[n_chunks * rc:])
@@ -202,10 +187,9 @@ class StreamRx:
 
     def _collect(self, outs, base: int, k: int = 1) -> list[StreamFrame]:
         # fetch the two packed metadata tensors first; the payload bits
-        # (the only large array) are fetched only when frames exist. Every
-        # fetch is a host<->device round trip on this runtime — this is
-        # the whole dispatch's host cost, and a K-step dispatch pays it
-        # once for K chunks (leading [K] axis on every output).
+        # (the only large array) are fetched only when frames exist. A
+        # K-step dispatch pays these fetches once for K chunks (leading
+        # [K] axis on every output).
         meta_i = np.asarray(outs["meta_i"])
         if k == 1:
             meta_i = meta_i[None]
@@ -242,8 +226,7 @@ class StreamRx:
     def save_state(self, path: str) -> None:
         """Checkpoint = StreamState leaves + the host-side chunk buffer."""
         import dataclasses as dc
-        from ..core.platform import fetch
-        leaves = {f.name: fetch(getattr(self.state, f.name))
+        leaves = {f.name: np.asarray(getattr(self.state, f.name))
                   for f in dc.fields(self.state)}
         # host step mirror saved as int64: the wrap-free global timebase
         np.savez(path, __buf__=self._buf,
@@ -252,8 +235,6 @@ class StreamRx:
     def load_state(self, path: str) -> None:
         import dataclasses as dc
         z = np.load(path)
-        # host leaves: they cross the executable boundary on the next step
-        # (complex must not be device-resident there — core/boundary.py)
         kw = {}
         for f in dc.fields(StreamState):
             if f.name in z:

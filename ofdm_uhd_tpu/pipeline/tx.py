@@ -25,17 +25,15 @@ class TxPipeline:
     """payloads [B, payload_bits_per_frame] -> frames [B, frame_len_radio]."""
 
     def __init__(self, spec: WaveformSpec):
-        from ..core.boundary import jit_planar
         self.spec = spec
-        self._step = jit_planar(functools.partial(_tx_step, spec))
+        self._step = jax.jit(functools.partial(_tx_step, spec))
 
     def encode(self, payloads: jax.Array) -> jax.Array:
         """payloads -> interleaved coded bits [B, coded_bits_per_frame]."""
         return _encode(self.spec, payloads)
 
     def __call__(self, payloads: jax.Array) -> jax.Array:
-        """Returns frames [B, frame_len_radio] — as a boundary.Planar pair
-        on runtimes needing planarization (decode with platform.fetch)."""
+        """Returns frames [B, frame_len_radio] complex64."""
         return self._step(payloads)
 
 
@@ -59,10 +57,8 @@ def _tx_step(spec: WaveformSpec, payloads: jax.Array) -> jax.Array:
         taps = T.resample_filter(l, m)
         if l > 1:
             frames = K2.polyphase_interp(frames, l, taps,
-                                         backend=spec.kernel_backend,
                                          precision=spec.filter_precision)
         if m > 1:
             frames = K2.polyphase_decim(frames, m, taps,
-                                        backend=spec.kernel_backend,
                                         precision=spec.filter_precision)
     return frames

@@ -2,8 +2,7 @@
 
 SURVEY.md §2.3 row 'DP -> frame parallel': the frame/batch axis is sharded
 over the 'frame' mesh axis with NamedSharding; the per-frame chain needs no
-cross-talk, so the only collective is a psum of scalar metrics inside
-shard_map — everything else is pure SPMD placement.
+cross-talk, so the only collective is a psum of scalar metrics.
 """
 
 from __future__ import annotations
@@ -32,23 +31,22 @@ def rx_frames_sharded(spec: WaveformSpec, mesh: jax.sharding.Mesh,
                       shift: int = 0):
     """Returns jitted fn: frames [B, len] -> result dict, frame-sharded.
 
-    Scalar health metrics (frames decoded, mean EVM) are psum-reduced over
-    the mesh inside shard_map so every host sees global counters
-    (SURVEY.md §5.5).
+    The whole per-frame chain runs inside shard_map, so every device
+    decodes its own frames (the fused Viterbi kernel included: a custom
+    kernel is opaque to XLA's automatic partitioner). Scalar health
+    metrics (frames decoded, mean EVM) are psum-reduced over the mesh so
+    every host sees global counters (SURVEY.md §5.5).
     """
-    def step(frames):
+    def body(frames):
         out = RXP._rx_aligned(spec, shift, True, frames)
+        n_ok = jax.lax.psum(jnp.sum(out["crc_ok"].astype(jnp.int32)), "frame")
+        evm = jax.lax.psum(jnp.sum(out["evm_db"]), "frame")
+        return out, n_ok, evm
 
-        def metrics(crc_ok, evm_db):
-            n_ok = jax.lax.psum(jnp.sum(crc_ok.astype(jnp.int32)), "frame")
-            evm = jax.lax.psum(jnp.sum(evm_db), "frame")
-            return n_ok, evm
-
-        n_ok, evm_sum = jax.shard_map(
-            metrics, mesh=mesh,
-            in_specs=(P("frame"), P("frame")),
-            out_specs=(P(), P()),
-        )(out["crc_ok"], out["evm_db"])
+    def step(frames):
+        out, n_ok, evm_sum = jax.shard_map(
+            body, mesh=mesh, in_specs=P("frame"),
+            out_specs=(P("frame"), P(), P()), check_vma=False)(frames)
         out["n_ok_global"] = n_ok
         out["mean_evm_global"] = evm_sum / frames.shape[0]
         return out

@@ -34,9 +34,10 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Multi-host bring-up: jax.distributed.initialize per host (T4/§5.8).
 
-    With no args, relies on the environment (TPU pod metadata / env vars).
-    After this, jax.devices() spans all hosts and the same collectives ride
-    ICI within a slice and DCN across hosts.
+    Pass the coordinator address (host:port), the process count and this
+    process's id; with no args, JAX looks for a cluster in the environment
+    and fails where none is described. After this, jax.devices() spans all
+    hosts and the same collectives run over NCCL across them.
     """
     kwargs = {}
     if coordinator is not None:

@@ -1,8 +1,8 @@
 """Worker for the 2-process jax.distributed CPU test (SURVEY.md §4).
 
 Each process owns 4 virtual CPU devices; the global mesh spans 8 devices
-across 2 processes — the same code path a multi-host TPU pod runs
-(jax.distributed.initialize + global mesh + ppermute/psum over DCN).
+across 2 processes — the same code path a multi-host GPU cluster runs
+(jax.distributed.initialize + global mesh + ppermute/psum across hosts).
 """
 
 import os

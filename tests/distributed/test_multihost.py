@@ -21,7 +21,9 @@ def _free_port():
 def test_two_process_stream():
     port = _free_port()
     workers = []
-    env = dict(os.environ, PYTHONPATH="/root/repo")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=root)
     env.pop("JAX_PLATFORMS", None)
     env.pop("XLA_FLAGS", None)
     script = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
@@ -29,7 +31,7 @@ def test_two_process_stream():
         workers.append(subprocess.Popen(
             [sys.executable, script, str(port), str(pid), "2"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env, cwd="/root/repo"))
+            env=env, cwd=root))
     outs = []
     for w in workers:
         try:

@@ -307,3 +307,23 @@ def test_rational_resample_stream_sharded():
     assert len(got1) == 3
     for a, b in zip(got, got1):
         assert a.start == b.start and np.array_equal(a.payload, b.payload)
+
+
+def test_step_paths_share_one_compiled_state_layout():
+    """A stream alternates the single-step and K-step executables (the
+    K-step groups, then the stragglers and flush). The state either one
+    returns must feed the other without a new compilation: on a GPU
+    mesh each one is seconds, once per alternation."""
+    spec = config("c1").with_(n_data_syms=4)
+    rx = StreamRx(spec, mesh=make_mesh(1, 4, devices=jax.devices()[:4]),
+                  steps_per_dispatch=2)
+    one = rx._put_chunk(np.zeros(rx.radio_chunk, np.complex64))
+    two = rx._put_chunk(np.zeros((2, rx.radio_chunk), np.complex64))
+    state = rx.state
+    for fn, chunk in ((rx._multi, two), (rx._step, one), (rx._multi, two),
+                      (rx._step, one), (rx._step, one), (rx._multi, two)):
+        state, _ = fn(state, chunk)
+    assert rx._step._cache_size() == 1
+    # the K-step executable also compiled once for the host-side initial
+    # state of StreamState.init
+    assert rx._multi._cache_size() <= 2

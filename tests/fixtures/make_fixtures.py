@@ -1,6 +1,6 @@
 """Regenerate the golden-vector regression fixtures (SURVEY.md §4).
 
-Run manually: PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python tests/fixtures/make_fixtures.py
+Run manually: JAX_PLATFORMS=cpu python tests/fixtures/make_fixtures.py
 The .npz files pin demod outputs for PRNG-keyed captures; CI compares.
 """
 
@@ -9,7 +9,7 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from ofdm_uhd_tpu.core.spec import ChannelSpec, config  # noqa: E402

@@ -11,14 +11,17 @@ from ofdm_uhd_tpu.io import (read_capture, write_capture, CaptureReader,
                              SyntheticSource)
 from ofdm_uhd_tpu.core.spec import ChannelSpec, config
 
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
 
 def run_cli(mod, *args):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = "/root/repo"
+    env["PYTHONPATH"] = ROOT
     r = subprocess.run([sys.executable, "-m", f"ofdm_uhd_tpu.cli.{mod}",
                        *args], capture_output=True, text=True, env=env,
-                      timeout=600, cwd="/root/repo")
+                      timeout=600, cwd=ROOT)
     assert r.returncode == 0, (r.stdout, r.stderr)
     return r
 
@@ -104,13 +107,13 @@ def test_cli_pod_rx(tmp_path):
     run_cli("tx", "--config", "c5", "--frames", "4", "--out", cap,
             "--bits-out", bits, "--gap", "500")
     env_extra = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo",
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT,
                **env_extra)
     r = subprocess.run([sys.executable, "-m", "ofdm_uhd_tpu.cli.pod_rx",
                         "--config", "c5", "--capture", cap,
                         "--bits-out", str(tmp_path / "rx_bits.npy")],
                        capture_output=True, text=True, env=env, timeout=600,
-                       cwd="/root/repo")
+                       cwd=ROOT)
     assert r.returncode == 0, (r.stdout, r.stderr)
     assert "4 frames, 4 crc-ok" in r.stderr, r.stderr
     got = np.load(tmp_path / "rx_bits.npy")

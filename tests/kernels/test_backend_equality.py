@@ -1,7 +1,9 @@
-"""Full-chain equality: kernel_backend='pallas' vs 'xla' (SURVEY.md M3 gate).
+"""Full-chain equality: the fused Viterbi kernel (Pallas interpreter) in
+place of the XLA decoder, through RxPipeline (SURVEY.md M3 gate).
 
-The decoded bits must be identical and the constellations equal to f32
-tolerance, for both the aligned and capture paths.
+The decoded bits must be identical, for the aligned and capture paths.
+The kernel is patched into the chain's decode step, since on a CPU the
+'auto' routing keeps the XLA decoder (tests/kernels/test_viterbi_kernel).
 """
 
 import zlib
@@ -11,6 +13,7 @@ import numpy as np
 from ofdm_uhd_tpu.core.spec import ChannelSpec, config
 from ofdm_uhd_tpu.channel import apply_channel, make_capture
 from ofdm_uhd_tpu.golden import GoldenModem
+from ofdm_uhd_tpu.kernels import viterbi as KV
 from ofdm_uhd_tpu.pipeline import TxPipeline, RxPipeline
 
 
@@ -18,61 +21,59 @@ def rng_for(name):
     return np.random.default_rng(zlib.crc32(name.encode()) % 2**31)
 
 
-def test_c2_aligned_backend_equality():
-    spec_x = config("c2")
-    spec_p = spec_x.with_(kernel_backend="pallas")
+def _kernel_rx(spec, monkeypatch, **kw):
+    """RxPipeline whose decode step runs the fused kernel."""
+    monkeypatch.setattr(KV, "viterbi", lambda llr, backend, mode:
+                        KV.viterbi_fused(llr, interpret=True))
+    return RxPipeline(spec, **kw)
+
+
+def test_c2_aligned_backend_equality(monkeypatch):
+    spec = config("c2")
     r = rng_for("be_c2")
-    p = r.integers(0, 2, (6, spec_x.payload_bits_per_frame)).astype(np.uint8)
-    fx = np.asarray(TxPipeline(spec_x)(p))
-    fp = np.asarray(TxPipeline(spec_p)(p))
-    np.testing.assert_allclose(fx, fp, atol=1e-4)
+    p = r.integers(0, 2, (6, spec.payload_bits_per_frame)).astype(np.uint8)
+    fx = np.asarray(TxPipeline(spec)(p))
     ch = ChannelSpec(snr_db=22.0, multipath_taps=(1.0, 0.35 - 0.15j))
-    rx_in = np.stack([apply_channel(fx[i], ch, spec_x.n_sc, seed=i)
+    rx_in = np.stack([apply_channel(fx[i], ch, spec.n_sc, seed=i)
                       for i in range(len(p))])
-    ox = RxPipeline(spec_x, shift=4).rx_aligned(rx_in)
-    op = RxPipeline(spec_p, shift=4).rx_aligned(rx_in)
-    assert np.array_equal(np.asarray(ox["payload"]), np.asarray(op["payload"]))
-    assert np.asarray(op["crc_ok"]).all()
-    assert np.array_equal(np.asarray(op["payload"]), p)
-    np.testing.assert_allclose(np.asarray(ox["data_syms"]),
-                               np.asarray(op["data_syms"]), atol=1e-3)
+    ox = RxPipeline(spec, shift=4).rx_aligned(rx_in)
+    ok = _kernel_rx(spec, monkeypatch, shift=4).rx_aligned(rx_in)
+    assert np.array_equal(np.asarray(ox["payload"]), np.asarray(ok["payload"]))
+    assert np.asarray(ok["crc_ok"]).all()
+    assert np.array_equal(np.asarray(ok["payload"]), p)
+    np.testing.assert_array_equal(np.asarray(ox["data_syms"]),
+                                  np.asarray(ok["data_syms"]))
 
 
-def test_c4_resampled_backend_equality():
-    spec_x = config("c4").with_(n_data_syms=4)  # keep CPU interpret fast
-    spec_p = spec_x.with_(kernel_backend="pallas")
+def test_c4_resampled_backend_equality(monkeypatch):
+    spec = config("c4").with_(n_data_syms=4)  # keep the CPU run short
     r = rng_for("be_c4")
-    p = r.integers(0, 2, (2, spec_x.payload_bits_per_frame)).astype(np.uint8)
-    fx = np.asarray(TxPipeline(spec_x)(p))
-    fp = np.asarray(TxPipeline(spec_p)(p))
-    np.testing.assert_allclose(fx, fp, atol=1e-4)
-    ox = RxPipeline(spec_x).rx_aligned(fx)
-    op = RxPipeline(spec_p).rx_aligned(fx)
-    assert np.asarray(op["crc_ok"]).all()
-    assert np.array_equal(np.asarray(ox["payload"]), np.asarray(op["payload"]))
-    assert np.array_equal(np.asarray(op["payload"]), p)
+    p = r.integers(0, 2, (2, spec.payload_bits_per_frame)).astype(np.uint8)
+    fx = np.asarray(TxPipeline(spec)(p))
+    ox = RxPipeline(spec).rx_aligned(fx)
+    ok = _kernel_rx(spec, monkeypatch).rx_aligned(fx)
+    assert np.asarray(ok["crc_ok"]).all()
+    assert np.array_equal(np.asarray(ox["payload"]), np.asarray(ok["payload"]))
+    assert np.array_equal(np.asarray(ok["payload"]), p)
 
 
-def test_c3_capture_backend_equality():
-    spec_x = config("c3")
-    spec_p = spec_x.with_(kernel_backend="pallas")
+def test_c3_capture_backend_equality(monkeypatch):
+    spec = config("c3")
     r = rng_for("be_c3")
-    gm = GoldenModem(spec_x)
-    p = r.integers(0, 2, (3, spec_x.payload_bits_per_frame)).astype(np.uint8)
+    gm = GoldenModem(spec)
+    p = r.integers(0, 2, (3, spec.payload_bits_per_frame)).astype(np.uint8)
     frames = np.stack([gm.modulate_frame(x) for x in p])
     cap = make_capture(frames, ChannelSpec(snr_db=28.0, cfo=0.9,
                                            timing_offset=150),
-                       spec_x.n_sc, gap=200, seed=4).astype(np.complex64)
-    ox = RxPipeline(spec_x).rx_capture(cap, max_frames=4)
-    op = RxPipeline(spec_p).rx_capture(cap, max_frames=4)
-    assert np.array_equal(np.asarray(ox["valid"]), np.asarray(op["valid"]))
-    assert np.asarray(op["valid"]).sum() == 3
-    assert np.array_equal(np.asarray(op["payload"])[:3], p)
-    np.testing.assert_allclose(np.asarray(ox["eps"])[:3],
-                               np.asarray(op["eps"])[:3], atol=1e-3)
-    # 'auto' (mixed tiers incl. the r5 Pallas DMA extraction) must agree
-    # with both pure backends on the decoded bits
-    oa = RxPipeline(spec_x.with_(kernel_backend="auto")).rx_capture(
-        cap, max_frames=4)
-    assert np.array_equal(np.asarray(oa["valid"]), np.asarray(ox["valid"]))
-    assert np.array_equal(np.asarray(oa["payload"])[:3], p)
+                       spec.n_sc, gap=200, seed=4).astype(np.complex64)
+    ox = RxPipeline(spec).rx_capture(cap, max_frames=4)
+    # two captures in one dispatch: the kernel decodes all 2 x 4 slots
+    ok = _kernel_rx(spec, monkeypatch).rx_capture(np.stack([cap, cap]),
+                                                  max_frames=4)
+    for i in range(2):
+        assert np.array_equal(np.asarray(ox["valid"]),
+                              np.asarray(ok["valid"])[i])
+        assert np.asarray(ok["valid"])[i].sum() == 3
+        assert np.array_equal(np.asarray(ok["payload"])[i, :3], p)
+        np.testing.assert_array_equal(np.asarray(ox["crc_ok"]),
+                                      np.asarray(ok["crc_ok"])[i])

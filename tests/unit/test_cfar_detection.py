@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 
 from ofdm_uhd_tpu.channel import make_capture
-from ofdm_uhd_tpu.core import platform
 from ofdm_uhd_tpu.core.spec import ChannelSpec, config
 from ofdm_uhd_tpu.golden import GoldenModem
 from ofdm_uhd_tpu.pipeline.rx import RxPipeline
@@ -40,10 +39,10 @@ def test_cfar_detects_below_fixed_threshold(cfg, snr_db):
     cap, _ = _capture(spec, 5, snr_db, seed=3)
     fixed = RxPipeline(spec)
     cfar = RxPipeline(spec, sync_threshold_mode="cfar")
-    n_fixed = int(np.asarray(platform.fetch(
-        fixed.rx_capture(cap, max_frames=8))["valid"]).sum())
-    n_cfar = int(np.asarray(platform.fetch(
-        cfar.rx_capture(cap, max_frames=8))["valid"]).sum())
+    n_fixed = int(np.asarray(
+        fixed.rx_capture(cap, max_frames=8)["valid"]).sum())
+    n_cfar = int(np.asarray(
+        cfar.rx_capture(cap, max_frames=8)["valid"]).sum())
     # the plateau at <=0 dB sits mostly under 0.5: the fixed threshold
     # drops frames, CFAR recovers every preamble (decode may still fail
     # CRC — that is the FEC's regime, not detection's)
@@ -57,7 +56,7 @@ def test_cfar_pure_noise_no_false_alarms():
     noise = (rng.normal(size=50000) + 1j * rng.normal(size=50000)
              ).astype(np.complex64) * 0.3
     cfar = RxPipeline(spec, sync_threshold_mode="cfar")
-    out = platform.fetch(cfar.rx_capture(noise, max_frames=8))
+    out = cfar.rx_capture(noise, max_frames=8)
     assert int(np.asarray(out["valid"]).sum()) == 0
     assert int(np.asarray(out["crc_ok"]).sum()) == 0
 
@@ -65,9 +64,9 @@ def test_cfar_pure_noise_no_false_alarms():
 def test_cfar_matches_fixed_on_clean_capture():
     spec = config("c3")
     cap, payloads = _capture(spec, 4, 25.0, seed=5)
-    fixed = platform.fetch(RxPipeline(spec).rx_capture(cap, max_frames=6))
-    cfar = platform.fetch(RxPipeline(spec, sync_threshold_mode="cfar")
-                          .rx_capture(cap, max_frames=6))
+    fixed = RxPipeline(spec).rx_capture(cap, max_frames=6)
+    cfar = RxPipeline(spec, sync_threshold_mode="cfar").rx_capture(
+        cap, max_frames=6)
     np.testing.assert_array_equal(np.asarray(fixed["valid"]),
                                   np.asarray(cfar["valid"]))
     np.testing.assert_array_equal(np.asarray(fixed["d"]),
@@ -75,22 +74,6 @@ def test_cfar_matches_fixed_on_clean_capture():
     assert np.asarray(cfar["crc_ok"]).sum() == 4
     assert np.array_equal(
         np.asarray(cfar["payload"])[np.asarray(cfar["valid"])], payloads)
-
-
-def test_cfar_with_fused_front_end():
-    """threshold_mode='cfar' composes with the fused Pallas front end
-    (the CFAR median runs on whatever metric the front produced)."""
-    from ofdm_uhd_tpu.phy.sync import detect_frames
-    import jax.numpy as jnp
-    spec = config("c3")
-    cap, _ = _capture(spec, 4, 25.0, seed=6)
-    a = detect_frames(spec, jnp.asarray(cap), 6, threshold_mode="cfar",
-                      front="xla")
-    b = detect_frames(spec, jnp.asarray(cap), 6, threshold_mode="cfar",
-                      front="fused")
-    np.testing.assert_array_equal(np.asarray(a[2]), np.asarray(b[2]))
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    assert int(np.asarray(a[2]).sum()) == 4
 
 
 def test_cfar_streaming_plumbing():
